@@ -1,0 +1,148 @@
+"""AutoencoderKL (SD VAE) on NHWC tensors (port of `models/vae.py`).
+
+The `resnet_impl="xla"` path of the JAX package: plain resnet blocks, the
+mid-block attention through `ops.attention.fused_kv_attention` (the flash
+kernel on the card), deterministic posterior-mean latents for eval.
+`state_dict` keys are the diffusers AutoencoderKL keys (modern
+`to_q/to_k/to_v/to_out.0` names; `checkpoint.py` maps the legacy ones).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from diffews_tpu_torch.configs import VAEConfig
+from diffews_tpu_torch.models.layers import (Conv2d, Downsample2D, GroupNorm,
+                                             ResnetBlock2D, Upsample2D, silu)
+from diffews_tpu_torch.ops.attention import fused_kv_attention
+
+EPS = 1e-6  # VAE GroupNorm epsilon (diffusers AutoencoderKL default)
+
+
+class VAEAttention(nn.Module):
+    """Single-head full-channel attention over spatial tokens."""
+
+    def __init__(self, c: int, groups: int):
+        super().__init__()
+        self.group_norm = GroupNorm(groups, c, EPS)
+        self.to_q = nn.Linear(c, c)
+        self.to_k = nn.Linear(c, c)
+        self.to_v = nn.Linear(c, c)
+        self.to_out = nn.ModuleList([nn.Linear(c, c), nn.Dropout(0.0)])
+
+    def forward(self, x: torch.Tensor, attn_impl: str) -> torch.Tensor:
+        b, h, w, c = x.shape
+        y = self.group_norm(x).reshape(b, h * w, c)
+        q = self.to_q(y)[:, :, None, :]  # 1 head
+        k = self.to_k(y)[:, :, None, :]
+        v = self.to_v(y)[:, :, None, :]
+        o = fused_kv_attention(q, k, v, None, None, impl=attn_impl)[:, :, 0, :]
+        return self.to_out[0](o).reshape(b, h, w, c) + x
+
+
+class MidBlock(nn.Module):
+    def __init__(self, c: int, groups: int):
+        super().__init__()
+        self.resnets = nn.ModuleList(
+            [ResnetBlock2D(c, c, None, groups=groups, eps=EPS) for _ in range(2)])
+        self.attentions = nn.ModuleList([VAEAttention(c, groups)])
+
+    def forward(self, x: torch.Tensor, attn_impl: str) -> torch.Tensor:
+        x = self.resnets[0](x)
+        x = self.attentions[0](x, attn_impl)
+        return self.resnets[1](x)
+
+
+class _Block(nn.Module):
+    """A down (encoder) or up (decoder) block: resnets + optional resampler."""
+
+    def __init__(self, resnets, sampler_name=None, sampler=None):
+        super().__init__()
+        self.resnets = nn.ModuleList(resnets)
+        if sampler is not None:
+            setattr(self, sampler_name, nn.ModuleList([sampler]))
+
+
+class Encoder(nn.Module):
+    def __init__(self, cfg: VAEConfig):
+        super().__init__()
+        chans, g = cfg.block_out_channels, cfg.norm_num_groups
+        n = len(chans)
+        self.conv_in = Conv2d(cfg.in_channels, chans[0], 3, padding=1)
+        blocks, cin = [], chans[0]
+        for i in range(n):
+            cout = chans[i]
+            res = [ResnetBlock2D(cin if j == 0 else cout, cout, None, groups=g, eps=EPS)
+                   for j in range(cfg.layers_per_block)]
+            down = Downsample2D(cout, asymmetric_pad=True) if i < n - 1 else None
+            blocks.append(_Block(res, "downsamplers", down))
+            cin = cout
+        self.down_blocks = nn.ModuleList(blocks)
+        self.mid_block = MidBlock(chans[-1], g)
+        self.conv_norm_out = GroupNorm(g, chans[-1], EPS)
+        self.conv_out = Conv2d(chans[-1], 2 * cfg.latent_channels, 3, padding=1)
+
+    def forward(self, x: torch.Tensor, attn_impl: str) -> torch.Tensor:
+        h = self.conv_in(x)
+        for blk in self.down_blocks:
+            for r in blk.resnets:
+                h = r(h)
+            if hasattr(blk, "downsamplers"):
+                h = blk.downsamplers[0](h)
+        h = self.mid_block(h, attn_impl)
+        return self.conv_out(silu(self.conv_norm_out(h)))
+
+
+class Decoder(nn.Module):
+    def __init__(self, cfg: VAEConfig):
+        super().__init__()
+        rev, g = list(reversed(cfg.block_out_channels)), cfg.norm_num_groups
+        n = len(rev)
+        self.conv_in = Conv2d(cfg.latent_channels, rev[0], 3, padding=1)
+        self.mid_block = MidBlock(rev[0], g)
+        blocks, cin = [], rev[0]
+        for i in range(n):
+            cout = rev[i]
+            res = [ResnetBlock2D(cin if j == 0 else cout, cout, None, groups=g, eps=EPS)
+                   for j in range(cfg.layers_per_block + 1)]
+            up = Upsample2D(cout) if i < n - 1 else None
+            blocks.append(_Block(res, "upsamplers", up))
+            cin = cout
+        self.up_blocks = nn.ModuleList(blocks)
+        self.conv_norm_out = GroupNorm(g, rev[-1], EPS)
+        self.conv_out = Conv2d(rev[-1], cfg.out_channels, 3, padding=1)
+
+    def forward(self, z: torch.Tensor, attn_impl: str) -> torch.Tensor:
+        h = self.conv_in(z)
+        h = self.mid_block(h, attn_impl)
+        for blk in self.up_blocks:
+            for r in blk.resnets:
+                h = r(h)
+            if hasattr(blk, "upsamplers"):
+                h = blk.upsamplers[0](h)
+        return self.conv_out(silu(self.conv_norm_out(h)))
+
+
+class AutoencoderKL(nn.Module):
+    def __init__(self, cfg: VAEConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.encoder = Encoder(cfg)
+        self.decoder = Decoder(cfg)
+        self.quant_conv = Conv2d(2 * cfg.latent_channels, 2 * cfg.latent_channels, 1, padding=0)
+        self.post_quant_conv = Conv2d(cfg.latent_channels, cfg.latent_channels, 1, padding=0)
+
+    def encode_moments(self, x: torch.Tensor, attn_impl: str = "auto") -> torch.Tensor:
+        """NHWC image in [-1, 1] -> (B, H/8, W/8, 2*latent) moments."""
+        return self.quant_conv(self.encoder(x, attn_impl))
+
+    def encode_mean_latent(self, x: torch.Tensor, attn_impl: str = "auto") -> torch.Tensor:
+        """Deterministic latent: posterior mean x scaling_factor (eval path)."""
+        moments = self.encode_moments(x, attn_impl)
+        return moments[..., : self.cfg.latent_channels] * self.cfg.scaling_factor
+
+    def decode(self, z: torch.Tensor, attn_impl: str = "auto") -> torch.Tensor:
+        """Scaled latent -> NHWC image (unclipped; the pipeline clips)."""
+        z = self.post_quant_conv(z / self.cfg.scaling_factor)
+        return self.decoder(z, attn_impl)

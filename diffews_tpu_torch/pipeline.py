@@ -1,0 +1,326 @@
+"""One-step few-shot segmentation inference pipeline (PyTorch port).
+
+Port of `diffews_tpu/pipeline.py`'s main path (`pipeline.py:399-499,
+583-648,781-793,920-950`).  Per episode:
+
+  1. ingest uint8 (or [-1, 1] float) query and support images and {0,1}
+     (or 3-channel [-1, 1]) support masks, normalised on the device with
+     the host transform's exact f32 arithmetic;
+  2. one batched VAE mean-latent encode of the query, support and mask
+     streams (B + 2·B·N images);
+  3. the joint UNet forward: support rows through `conv_in_ref`, query rows
+     through `conv_in`, query self-attention over `[own ‖ n·support]` keys;
+  4. the degenerate one-step DDIM (x0 = -v for the DiffewS scheduler);
+  5. VAE decode, clip, [0, 255] and truncation to uint8;
+  6. the relative (or absolute) threshold, on the host or on the device.
+
+PyTorch runs eagerly and CUDA launches are asynchronous, so `predict_async`
+returns as soon as the episode is queued; `PendingSeg.result()` is the
+synchronisation point.  The pipeline runs on `cuda` unless `device="cpu"`
+is passed; it never moves to the CPU by itself.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from diffews_tpu_torch import checkpoint as ckpt_lib
+from diffews_tpu_torch.configs import UNetConfig, VAEConfig
+from diffews_tpu_torch.models import clip_text
+from diffews_tpu_torch.ops.resize import nearest_resize
+from diffews_tpu_torch.scheduler import DDIMScheduler
+
+
+@dataclasses.dataclass
+class SegOutput:
+    """Counterpart of `MarigoldSegOutput` (pipeline `:66-80`)."""
+
+    seg_colored: np.ndarray  # (B, H, W, 3) uint8
+    mask: Optional[np.ndarray] = None  # (B, H, W) bool, if thresholding requested
+    uncertainty: Optional[np.ndarray] = None
+
+
+def resolve_device(device=None) -> torch.device:
+    """`device`, or the CUDA device when None.  Raises when None is given on
+    a host without a CUDA device: the port does not fall back to the CPU."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: the port runs on the GPU by default; pass "
+                "device='cpu' to run its plain-PyTorch path on the CPU")
+        device = "cuda"
+    return torch.device(device)
+
+
+def _true_div(x: torch.Tensor, c: float) -> torch.Tensor:
+    """x / c as a true division.  A Python-scalar divisor makes CUDA
+    multiply by the reciprocal instead, which differs in the last bit."""
+    return x / torch.tensor(c, dtype=x.dtype, device=x.device)
+
+
+class DiffewsPipeline:
+    """Few-shot segmentation predictor.
+
+    Args:
+      bundle: `checkpoint.PipelineBundle`.  The pipeline moves and casts the
+        bundle's modules in place (no second copy of the weights).
+      device: torch device; None = "cuda" (raises if there is none).
+      compute_dtype: torch.float32 (parity) or torch.bfloat16 (speed).
+      attn_impl: "auto"/"flash" (the CUDA flash kernel on the card, its
+        plain version on the CPU) or "dense".
+      test_timestep: timestep multiplier (`main_oss.py --test_timestep`).
+      encode_chunks: split the batched VAE encode into this many chunks
+        (0 = one batch up to 48 images, else chunks of <= 24); numerics are
+        unchanged, images are independent through the VAE.
+      attn_mask_variant: the experimental ATTN-MASK conditioning (support
+        masks as per-level attention key biases; `unet.forward` ref_mask).
+      vae_impl, unet_int8, mesh, shot_mesh: only the defaults are ported.
+    """
+
+    def __init__(self, bundle: ckpt_lib.PipelineBundle, *, device=None,
+                 compute_dtype=torch.float32, attn_impl: str = "auto",
+                 test_timestep: int = 1, mesh=None, shot_mesh=None,
+                 encode_chunks: int = 0, vae_impl: str = "xla",
+                 unet_int8: bool = False, attn_mask_variant: bool = False):
+        if vae_impl != "xla":
+            raise NotImplementedError(
+                f"vae_impl={vae_impl!r}: the fused resnet and groupnorm kernels "
+                "are not ported yet (ROADMAP B4, B5)")
+        if unet_int8:
+            raise NotImplementedError("unet_int8: W8A8 is not ported yet (ROADMAP A12)")
+        if mesh is not None or shot_mesh is not None:
+            raise NotImplementedError(
+                "mesh / shot_mesh: multi-device serving is not ported yet (ROADMAP A11)")
+        if attn_impl not in ("auto", "flash", "dense"):
+            raise ValueError(f"unknown attn_impl {attn_impl!r}")
+        self.device = resolve_device(device)
+        self.unet_cfg: UNetConfig = bundle.unet_cfg
+        self.vae_cfg: VAEConfig = bundle.vae_cfg
+        self.scheduler = DDIMScheduler(bundle.scheduler_cfg)
+        self.compute_dtype = compute_dtype
+        self.attn_impl = attn_impl
+        self.test_timestep = test_timestep
+        self.encode_chunks = int(encode_chunks)
+        self.attn_mask_variant = bool(attn_mask_variant)
+
+        fmt = (torch.channels_last if self.device.type == "cuda"
+               else torch.contiguous_format)
+        self.unet = bundle.unet.to(device=self.device, dtype=compute_dtype,
+                                   memory_format=fmt).eval().requires_grad_(False)
+        self.vae = bundle.vae.to(device=self.device, dtype=compute_dtype,
+                                 memory_format=fmt).eval().requires_grad_(False)
+
+        # Empty-prompt embedding, computed once in the text encoder's own
+        # dtype (pipeline `:585-614`); the eval protocol uses the unpadded
+        # [bos, eos] ids.
+        with torch.inference_mode():
+            if bundle.text is not None:
+                text = bundle.text.to(self.device).eval()
+                ids = clip_text.empty_prompt_ids(bundle.text_cfg, device=self.device)
+                self.empty_text_embed = text(ids).to(compute_dtype)
+            else:
+                self.empty_text_embed = torch.zeros(
+                    (1, 2, self.unet_cfg.cross_attention_dim),
+                    dtype=compute_dtype, device=self.device)
+
+    @classmethod
+    def from_pretrained(cls, checkpoint: str, unet_dir: Optional[str] = None,
+                        scheduler_dir: Optional[str] = None, **kw) -> "DiffewsPipeline":
+        bundle = ckpt_lib.load_pipeline_bundle(checkpoint, unet_dir, scheduler_dir)
+        return cls(bundle, **kw)
+
+    # -- the episode -------------------------------------------------------
+
+    def _norm_img(self, x: torch.Tensor) -> torch.Tensor:
+        """uint8 ingestion with the host transform's exact f32 `/255, -0.5,
+        /0.5` arithmetic (bit-identical to host-normalised floats)."""
+        if x.dtype == torch.uint8:
+            x = _true_div(_true_div(x.float(), 255.0) - 0.5, 0.5)
+        return x.to(self.compute_dtype)
+
+    def _norm_mask(self, masks: torch.Tensor) -> torch.Tensor:
+        """(B, N, H, W) {0,1} -> (B, N, H, W, 3) in [-1, 1] (`main_oss.py:
+        100-104`); 5-D inputs pass through the image normalisation."""
+        if masks.ndim == 4:
+            m = masks.float() * 2.0 - 1.0
+            return m[..., None].expand(m.shape + (3,)).to(self.compute_dtype)
+        return self._norm_img(masks)
+
+    def _encode_images(self, all_imgs: torch.Tensor) -> torch.Tensor:
+        """Batched VAE mean-latent encode, optionally in chunks."""
+        nimg = all_imgs.shape[0]
+        chunks = self.encode_chunks or (1 if nimg <= 48 else -(-nimg // 24))
+        enc = lambda x: self.vae.encode_mean_latent(x, attn_impl=self.attn_impl)
+        if chunks <= 1:
+            return enc(all_imgs)
+        per = -(-nimg // chunks)
+        return torch.cat([enc(c) for c in all_imgs.split(per)], dim=0)
+
+    def _x0_latent(self, query, supports, masks, text_embed, shot_mask,
+                   denoising_steps: int) -> torch.Tensor:
+        """Predicted x0 latent of the episode."""
+        b, n = supports.shape[0], supports.shape[1]
+        query, supports = self._norm_img(query), self._norm_img(supports)
+        masks = self._norm_mask(masks)
+        flat = lambda x: x.reshape((b * n,) + tuple(x.shape[2:]))
+
+        if self.attn_mask_variant:
+            # support masks become per-level attention key biases; only
+            # query and support RGB go through the VAE
+            ref_mask = (masks.float().mean(dim=-1) > 0.0).float()  # (B, N, H, W)
+            lat = self._encode_images(torch.cat([query, flat(supports)], dim=0))
+            lh, lw = lat.shape[1:3]
+            q_lat = lat[:b]
+            ref = lat[b:].reshape(b, n, lh, lw, -1)
+        else:
+            ref_mask = None
+            lat = self._encode_images(torch.cat([query, flat(supports), flat(masks)], dim=0))
+            lh, lw = lat.shape[1:3]
+            q_lat = lat[:b]
+            s_lat = lat[b:b + b * n].reshape(b, n, lh, lw, -1)
+            m_lat = lat[b + b * n:].reshape(b, n, lh, lw, -1)
+            ref = torch.cat([s_lat, m_lat], dim=-1)  # (B, N, h, w, 8)
+
+        ctx = text_embed.expand((b,) + tuple(text_embed.shape[1:])).to(self.compute_dtype)
+        self.scheduler.set_timesteps(denoising_steps)
+        latent = x0 = q_lat
+        for t in self.scheduler.timesteps:
+            v = self.unet(latent, int(t) * self.test_timestep, ctx, ref_sample=ref,
+                          shot_mask=shot_mask, ref_mask=ref_mask,
+                          attn_impl=self.attn_impl)
+            latent, x0 = self.scheduler.step(v, int(t), latent)
+        return x0
+
+    def _decode_seg(self, x0: torch.Tensor) -> torch.Tensor:
+        """VAE decode + clip(-1, 1) -> [0, 255] -> uint8 (truncating), the
+        reference's PIL round-trip (`main_oss.py:128-137`)."""
+        img = self.vae.decode(x0, attn_impl=self.attn_impl).float().clamp(-1.0, 1.0)
+        img = (img * 0.5 + 0.5) * 255.0
+        return img.clamp(0.0, 255.0).to(torch.uint8)
+
+    def _put(self, x) -> torch.Tensor:
+        return torch.as_tensor(x).to(self.device, non_blocking=True)
+
+    # -- public API ---------------------------------------------------------
+
+    @torch.inference_mode()
+    def predict_async(self, query, supports, support_masks, *, shot_mask=None,
+                      denoising_steps: int = 1,
+                      out_size: Optional[Tuple[int, int]] = None,
+                      r_threshold: float = 0.0, threshold: float = 0.0,
+                      mask_on_device: bool = False) -> "PendingSeg":
+        """Queue an episode on the device and return a `PendingSeg`.
+
+        query: (B, H, W, 3), supports: (B, N, H, W, 3), uint8 or [-1, 1]
+        floats (NCHW is transposed); support_masks: (B, N, H, W) {0,1} or
+        (B, N, H, W, 3) in [-1, 1]; shot_mask: optional (B, N) bool.
+        mask_on_device: run the threshold on the device
+        (`device_mask_from_seg`)."""
+        query = _to_nhwc(np.asarray(query), 4)
+        supports = _to_nhwc(np.asarray(supports), 5)
+        support_masks = np.asarray(support_masks)
+        if support_masks.ndim == 5:
+            support_masks = _to_nhwc(support_masks, 5)
+        elif support_masks.ndim != 4:
+            raise ValueError(
+                f"support_masks must be 4-D {{0,1}} or 5-D 3-channel [-1,1]; "
+                f"got shape {support_masks.shape}")
+        x0 = self._x0_latent(
+            self._put(query), self._put(supports), self._put(support_masks),
+            self.empty_text_embed,
+            None if shot_mask is None else self._put(np.asarray(shot_mask, bool)),
+            denoising_steps)
+        img = self._decode_seg(x0)
+        if out_size is not None and tuple(img.shape[1:3]) != tuple(out_size):
+            img = nearest_resize(img, tuple(out_size))
+        mask_dev = None
+        if mask_on_device and (r_threshold > 0 or threshold > 0):
+            rel = r_threshold > 0
+            mask_dev = device_mask_from_seg(img, r_threshold if rel else threshold, rel)
+        return PendingSeg(img, r_threshold, threshold, mask_device=mask_dev)
+
+    def predict(self, *args, **kw) -> SegOutput:
+        """Blocking form of `predict_async`.
+
+          out_size: target (H, W) of the prediction (nearest resize, pipeline
+            `:473-474`).
+          r_threshold: relative threshold, mask = mean_RGB > r * max
+            (`main_oss.py:131-137`).
+          threshold: absolute threshold on mean_RGB in [0, 1]."""
+        return self.predict_async(*args, **kw).result()
+
+    def __call__(self, input_images, denoising_steps: int = 1, ensemble_size: int = 1,
+                 processing_res: int = 512, match_input_res: bool = True,
+                 batch_size: int = 0, show_progress_bar: bool = False,
+                 mode: str = "seg", rgb_paths=(), seed=None) -> SegOutput:
+        """Reference-pipeline-compatible entry.  `input_images` = [support
+        images (B*N, 3, H, W), query (B, 3, H, W), support masks (B*N, 3, H,
+        W)] in [-1, 1] (`main_oss.py:106-123`).  Seg mode only; the single
+        pass equals the reference's deterministic ensemble mean."""
+        if mode not in ("seg", "semseg"):
+            raise NotImplementedError(
+                f"mode={mode!r}: only seg/semseg is ported (the depth head is "
+                "ROADMAP A13)")
+        sup, qry, msk = (np.asarray(x) for x in input_images)
+        b = qry.shape[0]
+        n = sup.shape[0] // b
+        sup = sup.reshape((b, n) + sup.shape[1:])
+        msk = msk.reshape((b, n) + msk.shape[1:])
+        out_size = tuple(qry.shape[-2:]) if match_input_res else None
+        return self.predict(qry, sup, msk, denoising_steps=denoising_steps,
+                            out_size=out_size)
+
+
+def device_mask_from_seg(img_u8: torch.Tensor, thr: float, relative: bool) -> torch.Tensor:
+    """The host threshold of `PendingSeg.result()` on the device, bit for
+    bit: p = uint8/255 (true division), pm = ((p0+p1)+p2)/3 (numpy's sum
+    order and true division, not `mean`), then pm > max(p)·thr (relative)
+    or pm > thr.  Returns bool (B, H, W)."""
+    p = _true_div(img_u8.float(), 255.0)
+    pm = _true_div((p[..., 0] + p[..., 1]) + p[..., 2], 3.0)
+    if relative:
+        t = p.reshape(p.shape[0], -1).amax(dim=1) * thr
+    else:
+        t = torch.full((p.shape[0],), thr, dtype=torch.float32, device=p.device)
+    return pm > t[:, None, None]
+
+
+class PendingSeg:
+    """In-flight segmentation prediction (device tensor + threshold params)."""
+
+    def __init__(self, img_device: torch.Tensor, r_threshold: float,
+                 threshold: float, mask_device: Optional[torch.Tensor] = None):
+        self._img = img_device
+        self._r_threshold = r_threshold
+        self._threshold = threshold
+        self._mask_dev = mask_device
+
+    def result(self, need_seg: bool = True) -> SegOutput:
+        if self._mask_dev is not None:
+            mask = self._mask_dev.cpu().numpy()
+            seg = self._img.cpu().numpy() if need_seg else None
+            return SegOutput(seg_colored=seg, mask=mask)
+        seg = self._img.cpu().numpy()  # the synchronisation point
+        mask = None
+        if self._r_threshold > 0 or self._threshold > 0:
+            # PIL round-trip: to_tensor divides the uint8 image by 255
+            p = seg.astype(np.float32) / 255.0
+            if self._r_threshold > 0:
+                thr = p.reshape(p.shape[0], -1).max(axis=1) * self._r_threshold
+                mask = p.mean(axis=-1) > thr[:, None, None]
+            else:
+                mask = p.mean(axis=-1) > self._threshold
+        return SegOutput(seg_colored=seg, mask=mask)
+
+
+def _to_nhwc(x: np.ndarray, ndim: int) -> np.ndarray:
+    """Accept NCHW (reference convention) or NHWC; return NHWC."""
+    if x.ndim != ndim:
+        raise ValueError(f"expected {ndim}-D array, got {x.shape}")
+    if x.shape[-3] == 3 and x.shape[-1] != 3:
+        return np.moveaxis(x, -3, -1)
+    return x

@@ -1,0 +1,78 @@
+"""The port stands alone: `diffews_tpu_torch/` and `chip_smoke.py` import
+neither `jax` nor the JAX package, and the pipeline refuses to fall back to
+the CPU on a host without a CUDA device."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax  # noqa: F401  (the port's tests run beside the JAX package's)
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _port_sources():
+    files = sorted((ROOT / "diffews_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    return files
+
+
+def _forbidden(name: str) -> bool:
+    return (name == "jax" or name.startswith("jax.") or name == "diffews_tpu"
+            or name.startswith("diffews_tpu."))
+
+
+def test_no_jax_or_reference_imports_in_port_sources():
+    bad = []
+    for path in _port_sources():
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""] if node.level == 0 else []
+            else:
+                continue
+            bad += [f"{path.relative_to(ROOT)}:{node.lineno} {n}" for n in names
+                    if _forbidden(n)]
+    assert not bad, bad
+
+
+def test_importing_the_port_loads_no_jax():
+    code = ("import sys\n"
+            "import diffews_tpu_torch.pipeline, diffews_tpu_torch.checkpoint\n"
+            "import diffews_tpu_torch.ops._build\n"
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+            "       or m == 'diffews_tpu' or m.startswith('diffews_tpu.')]\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
+def test_pipeline_without_a_device_raises_on_a_cpu_host(monkeypatch):
+    from diffews_tpu_torch import checkpoint as TC
+    from diffews_tpu_torch import configs as TCF
+    from diffews_tpu_torch.pipeline import DiffewsPipeline
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    bundle = TC.random_pipeline_bundle(TCF.UNetConfig.tiny(), TCF.VAEConfig.tiny(), None,
+                                       TCF.SchedulerConfig.diffews())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DiffewsPipeline(bundle)
+    DiffewsPipeline(bundle, device="cpu")  # an explicit CPU request runs
+
+
+def test_chip_smoke_fails_without_a_card():
+    """`chip_smoke.py` exits non-zero and prints no result line on a host
+    without CUDA."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    r = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout
