@@ -8,16 +8,30 @@ Run from the root of a checkout on a host with one CUDA card:
 Phases, each of which fails the run (non-zero exit) on any error:
 
   1. device: the card's name and power limit (`nvidia-smi`);
-  2. build: compile every `diffews_tpu_torch/ops/csrc/*.cu` with nvcc;
-  3. kernel: the flash-attention kernel against its plain version at every
-     shape a 512px episode gives it, in f32 (TF32 off) and bf16, O and
-     LSE, with kernel / plain / `F.scaled_dot_product_attention` times;
-  4. tiny: a tiny-config f32 episode on the card (kernel) against the same
-     episode on the CPU (plain version);
-  5. full: random-weight SD-2.1 UNet (8-ch `conv_in_ref`), SD VAE and
+  2. build: compile every `diffews_tpu_torch/ops/csrc/*.cu` with nvcc (one
+     process each, started together) and print ptxas's registers/spills;
+  3. kernel: the flash-attention forward kernel against its plain version
+     at every shape a 512px episode gives it, in f32 (TF32 off) and bf16,
+     O and LSE, with kernel / plain / `F.scaled_dot_product_attention`
+     times;
+  4. bwd: the backward kernels (dq, dkv) against their plain version at
+     every shape a B = 1, 1-shot, 512px training micro-step gives them,
+     plus the 5-shot padded and attn-mask query shapes, f32 (TF32 off) and
+     bf16, with kernel / plain / SDPA-backward times and the bounds;
+  5. tiny: a tiny-config f32 episode on the card (kernels) against the same
+     episode on the CPU (plain versions);
+  6. tiny_train: two tiny f32 training steps at gas 2 on the card against
+     the same steps on the CPU, both conditioning variants;
+  7. full: random-weight SD-2.1 UNet (8-ch `conv_in_ref`), SD VAE and
      OpenCLIP ViT-H text tower at their published widths, bf16, 512px:
-     a 1-shot batch-4 episode (34 kernel launches per `predict`) and a
-     5-shot episode with two padded shots against the 3-shot episode.
+     a 1-shot batch-4 episode (34 forward launches per `predict`) and a
+     5-shot episode with two padded shots against the 3-shot episode;
+  8. train: the training step at the same widths (bf16 compute, f32
+     masters, remat, AdamW): launches per micro-step (65 forward, 32 dq,
+     32 dkv), step times at gas 1 and 4, peak memory, a profile, the
+     f32 kernel path against the dense path, padded-shot invariance of
+     loss and gradients, and the attn-mask variant's decaying
+     `conv_in_ref`.
 
 Every line before the last is plain text or JSON; the last line is
 `{"ok": true, "device": {...}}`.  Detailed results also go to
@@ -107,11 +121,13 @@ def phase_build():
     secs = time.time() - t0
     for name in _build.sources():
         _build.load(name)
-    for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "Compiling" in line:
-                print(f"[{name}] {line.strip()}", flush=True)
+    report = [f"[{name}] {line.strip()}" for name, log in logs.items()
+              for line in log.splitlines()
+              if "registers" in line or "spill" in line or "Compiling" in line]
+    for line in report:
+        print(line, flush=True)
     RESULTS["build_s"] = secs
+    RESULTS["build_report"] = report
     emit({"phase": "build", "sources": _build.sources(), "seconds": round(secs, 2)})
 
 
@@ -211,6 +227,111 @@ def phase_kernel():
     return rows
 
 
+# (label, B, H, Sq, Skv, d, mask kind): every shape a B = 1, 1-shot, 512px
+# training micro-step gives the backward kernels (support rows attend over
+# their own tokens, query rows over [own ‖ support]), and the 5-shot padded
+# and attn-mask query shapes.
+BWD_SHAPES = [
+    ("unet64_support", 1, 5, 4096, 4096, 64, None),
+    ("unet64_query_1shot", 1, 5, 4096, 8192, 64, None),
+    ("unet32_support", 1, 10, 1024, 1024, 64, None),
+    ("unet32_query_1shot", 1, 10, 1024, 2048, 64, None),
+    ("unet16_support", 1, 20, 256, 256, 64, None),
+    ("unet16_query_1shot", 1, 20, 256, 512, 64, None),
+    ("unet8_mid_support", 1, 20, 64, 64, 64, None),
+    ("unet8_mid_query_1shot", 1, 20, 64, 128, 64, None),
+    ("unet64_query_5shot_2padded", 1, 5, 4096, 24576, 64, "shots"),
+    ("unet64_query_attnmask", 1, 5, 4096, 8192, 64, "attnmask"),
+]
+BWD_MAIN_SHAPE = "unet64_query_1shot"
+BWD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}  # max |kernel − plain| / max |plain|
+
+
+def _bwd_bound_ms(kind, b, h, sq, skv_valid, skv, d, elt, masked):
+    """Least time for one backward kernel: dq does 6·B·H·Sq·Skv_valid·d
+    FLOPs, dkv 8·; both read q, k, v, g (input dtype), LSE and δ (f32) and
+    the mask once; dq writes dQ, dkv dK and dV."""
+    flops = (6.0 if kind == "dq" else 8.0) * b * h * sq * skv_valid * d
+    peak = PEAK_BF16 if elt == 2 else PEAK_F32
+    nbytes = ((2 * b * sq * h * d + 2 * b * skv * h * d) * elt + 2 * b * sq * h * 4
+              + (b * skv if masked else 0)
+              + (b * sq * h * d if kind == "dq" else 2 * b * skv * h * d) * elt)
+    t_ops, t_mem = flops / peak, nbytes / MEM_BW
+    return max(t_ops, t_mem) * 1e3, ("operations" if t_ops >= t_mem else "bytes")
+
+
+def phase_bwd():
+    import torch
+    import torch.nn.functional as F
+    from diffews_tpu_torch.ops.flash_attention import (flash_attention_bwd,
+                                                       flash_attention_bwd_dkv,
+                                                       flash_attention_bwd_dq,
+                                                       flash_attention_bwd_reference,
+                                                       flash_attention_lse)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    emit("bwd phase: TF32 off; tolerance max|kernel - plain| / max|plain| "
+         + json.dumps(BWD_TOL))
+    rows = []
+    for i, (label, b, h, sq, skv, d, mk) in enumerate(BWD_SHAPES):
+        q32, k32, v32, mask = _kernel_inputs(b, h, sq, skv, d, mk, seed=200 + i)
+        g32 = torch.randn(q32.shape, generator=torch.Generator(device="cuda").manual_seed(i),
+                          device="cuda")
+        skv_valid = skv if mask is None else mask.float().sum(1).mean().item()
+        scale = d ** -0.5
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v, g = (x.to(dt) for x in (q32, k32, v32, g32))
+            out, lse = flash_attention_lse(q, k, v, kv_mask=mask)
+            got = flash_attention_bwd(q, k, v, out, lse, g, scale=scale, kv_mask=mask)
+            want = flash_attention_bwd_reference(q.float(), k.float(), v.float(), mask,
+                                                 out.float(), lse, g.float(), scale)
+            torch.cuda.synchronize()
+            name = str(dt).replace("torch.", "")
+            rel, absd = {}, {}
+            for key, a, r in zip(("dq", "dk", "dv"), got, want):
+                check(bool(torch.isfinite(a.float()).all()), f"{label} {name}: non-finite {key}")
+                err = (a.float() - r).abs().max().item()
+                absd[key], rel[key] = err, err / max(r.abs().max().item(), 1e-30)
+            zero_masked = True
+            if mask is not None:
+                dead = ~mask[:, :, None, None].expand_as(got[1])
+                zero_masked = bool((got[1][dead] == 0).all() and (got[2][dead] == 0).all())
+            del want
+            delta = (out.float() * g.float()).sum(-1)
+            dq_ms = cuda_ms(lambda: flash_attention_bwd_dq(q, k, v, g, lse, delta, scale=scale,
+                                                           kv_mask=mask))
+            dkv_ms = cuda_ms(lambda: flash_attention_bwd_dkv(q, k, v, g, lse, delta,
+                                                             scale=scale, kv_mask=mask))
+            plain_ms = cuda_ms(lambda: flash_attention_bwd_reference(
+                q, k, v, mask, out, lse, g, scale), reps=3, warmup=1)
+            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+            am = None if mask is None else mask[:, None, None, :]
+            o_lib = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am)
+            gt = g.transpose(1, 2)
+            lib_ms = cuda_ms(lambda: torch.autograd.grad(o_lib, (qt, kt, vt), gt,
+                                                         retain_graph=True))
+            del o_lib, qt, kt, vt
+            bounds = {kind: _bwd_bound_ms(kind, b, h, sq, skv_valid, skv, d, q.element_size(),
+                                          mask is not None) for kind in ("dq", "dkv")}
+            ok = max(rel.values()) <= BWD_TOL[name] and zero_masked
+            row = {"shape": label, "dtype": name, "B": b, "H": h, "Sq": sq, "Skv": skv,
+                   "Skv_valid": skv_valid, "d": d, "mask": mk, "rel_err": rel,
+                   "max_abs_err": absd, "masked_keys_zero": zero_masked,
+                   "dq_ms": dq_ms, "dkv_ms": dkv_ms, "plain_ms": plain_ms,
+                   "library_ms": lib_ms, "dq_bound_ms": bounds["dq"][0],
+                   "dq_bound_by": bounds["dq"][1], "dkv_bound_ms": bounds["dkv"][0],
+                   "dkv_bound_by": bounds["dkv"][1], "ok": ok}
+            rows.append(row)
+            emit(row)
+            check(ok, f"backward kernels disagree with the plain version at {label} {name}: "
+                      f"{rel}, masked keys zero: {zero_masked}")
+            del got, out, lse, delta
+        torch.cuda.empty_cache()
+    RESULTS["bwd"] = rows
+    return rows
+
+
 def _episode(b, n, s, seed):
     rng = np.random.default_rng(seed)
     q = rng.integers(0, 256, (b, s, s, 3), dtype=np.uint8)
@@ -268,10 +389,122 @@ def phase_tiny():
     emit({"phase": "tiny", "dtype": "float32", "tf32": False, **out})
 
 
+def _train_batch(gas, b, n, s, seed, padded=0, device="cpu"):
+    """Synthetic uint8 episodes with binary masks, as the training step
+    takes them ((G, B, ...) leading axes); the last `padded` shots of every
+    row are masked out by `shot_mask`."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    img = lambda *sh: rng.integers(0, 256, sh + (s, s, 3), dtype=np.uint8)
+    m = np.zeros((gas, b, 1 + n, s, s), np.uint8)  # a random rectangle per image
+    for idx in np.ndindex(gas, b, 1 + n):
+        y0, x0 = rng.integers(0, s // 2, 2)
+        m[idx + (slice(y0, y0 + s // 2), slice(x0, x0 + s // 2))] = 1
+    shot_mask = np.ones((gas, b, n), bool)
+    if padded:
+        shot_mask[:, :, n - padded:] = False
+    batch = {"query": img(gas, b), "q_mask3": m[:, :, 0], "supports": img(gas, b, n),
+             "s_mask3": m[:, :, 1:], "shot_mask": shot_mask}
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def _n_images(b, n, variant):
+    return 2 * b + b * n * (1 if variant else 2)
+
+
+def _params_close(got, want, mu_hist, lr, steps, what):
+    """The params after `steps` steps on two devices: within 1e-3·lr on at
+    least 99.9% of the entries and within 2·lr per step everywhere.  An
+    entry whose gradient is within float noise of zero can flip the sign of
+    an Adam step, so entries off by more than 1e-3·lr must have had a first
+    moment within 1e-2 of their leaf's largest after some step."""
+    off = total = 0
+    worst = 0.0
+    for name, p in got.items():
+        d = (p.detach().cpu() - want[name].detach().cpu()).abs()
+        bad = d > 1e-3 * lr
+        noisy = None
+        for mu in mu_hist:
+            m = mu[name].abs()
+            small = m <= 1e-2 * m.max()
+            noisy = small if noisy is None else noisy | small
+        stray = bad & ~noisy
+        if bool(stray.any()):
+            fail(f"{what}: {name} differs by {d[stray].max().item() / lr:.3g}·lr where the "
+                 "gradient is not small")
+        check(d.max().item() <= 2 * lr * steps, f"{what}: {name} off by "
+              f"{d.max().item() / lr:.3g}·lr")
+        off, total = off + int(bad.sum()), total + bad.numel()
+        worst = max(worst, d.max().item() / lr)
+    check(off <= 1e-3 * total, f"{what}: {off} of {total} entries off by more than 1e-3·lr")
+    return {"entries_off": off, "entries": total, "max_diff_over_lr": worst}
+
+
+def phase_tiny_train():
+    import torch
+    from diffews_tpu_torch.configs import UNetConfig, VAEConfig
+    from diffews_tpu_torch.models.unet import UNet2DConditionModel
+    from diffews_tpu_torch.models.vae import AutoencoderKL
+    from diffews_tpu_torch.ops.flash_attention import flash_attention_bwd
+    from diffews_tpu_torch.training.state import TrainerConfig, init_state, make_train_step
+    from diffews_tpu_torch.utils.init import build_module
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ucfg, vcfg = UNetConfig.tiny(), VAEConfig.tiny()
+    gas, b, n, px, lr = 2, 2, 2, 32, 1e-3
+    text = np.random.default_rng(3).normal(0, 0.5, (1, 77, ucfg.cross_attention_dim))
+    out = {}
+    for variant in (False, True):
+        cfg = TrainerConfig(compute_dtype=torch.float32, adam_mu_dtype=torch.float32,
+                            learning_rate=lr, max_train_steps=10,
+                            attn_mask_variant=variant)
+        noise = np.random.default_rng(4).normal(
+            size=(2, gas, _n_images(b, n, variant), px // 2, px // 2, 4)).astype(np.float32)
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            unet = build_module(UNet2DConditionModel, ucfg, seed=0).to(dev)
+            vae = build_module(AutoencoderKL, vcfg, seed=1).to(dev).requires_grad_(False)
+            state = init_state(cfg, dict(unet.named_parameters()), device=dev)
+            step = make_train_step(cfg, unet)
+            dq0, dkv0 = flash_attention_bwd.dq_launches, flash_attention_bwd.dkv_launches
+            metrics, mu_hist = [], []
+            for i in range(2):
+                batch = _train_batch(gas, b, n, px, seed=10 + i, padded=1, device=dev)
+                state, m = step(state, batch, torch.from_numpy(noise[i]).to(dev), vae,
+                                torch.tensor(text, dtype=torch.float32, device=dev))
+                metrics.append({k: float(v) for k, v in m.items()})
+                mu_hist.append({k: v.detach().cpu().clone() for k, v in state.opt_state.mu.items()})
+            runs[dev] = (metrics, state, mu_hist, flash_attention_bwd.dq_launches - dq0,
+                         flash_attention_bwd.dkv_launches - dkv0)
+        (m_cpu, s_cpu, mu_cpu, _, _), (m_gpu, s_gpu, _, dq_n, dkv_n) = runs["cpu"], runs["cuda"]
+        what = f"tiny train GPU vs CPU (attn_mask_variant={variant})"
+        check(dq_n > 0 and dkv_n > 0, f"{what}: the backward kernels were not launched")
+        for i, (a, c) in enumerate(zip(m_gpu, m_cpu)):
+            check(abs(a["loss"] - c["loss"]) <= 1e-5 * abs(c["loss"]),
+                  f"{what}: step {i} loss {a['loss']} vs {c['loss']}")
+            check(abs(a["grad_norm"] - c["grad_norm"]) <= 1e-4 * abs(c["grad_norm"]),
+                  f"{what}: step {i} grad norm {a['grad_norm']} vs {c['grad_norm']}")
+            check(a["notfinite_count"] == c["notfinite_count"] == 0
+                  and a["total_notfinite"] == c["total_notfinite"] == 0, f"{what}: counters")
+        check(int(s_gpu.step) == int(s_cpu.step) == 2, f"{what}: step counters")
+        params = _params_close(s_gpu.params, s_cpu.params, mu_cpu, lr, 2, what)
+        out["attn_mask" if variant else "kv_fusion"] = {
+            "loss_gpu": [m["loss"] for m in m_gpu], "loss_cpu": [m["loss"] for m in m_cpu],
+            "grad_norm_gpu": [m["grad_norm"] for m in m_gpu],
+            "grad_norm_cpu": [m["grad_norm"] for m in m_cpu],
+            "dq_launches": dq_n, "dkv_launches": dkv_n, **params}
+    RESULTS["tiny_train"] = out
+    emit({"phase": "tiny_train", "dtype": "float32", "tf32": False, "gas": gas, **out})
+
+
 def _kernel_class(name: str) -> str:
     n = name.lower()
     if "flash_fwd" in n:
         return "flash_attention_fwd"
+    if "flash_bwd" in n:
+        return "flash_attention_bwd"
     if "fprop" in n or "conv" in n or "cudnn" in n:
         return "conv (cuDNN)"
     if "gemm" in n or "cutlass" in n or "nvjet" in n or "cublas" in n:
@@ -282,8 +515,9 @@ def _kernel_class(name: str) -> str:
 
 
 def profile_episode(fn) -> dict:
-    """Device time of one episode by kernel class (torch.profiler), and the
-    device's idle share of the episode's wall time."""
+    """Device time of one run of `fn` (an episode or a training step) by
+    kernel class (torch.profiler), and the device's idle share of its wall
+    time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -305,7 +539,8 @@ def profile_episode(fn) -> dict:
         return {"device_ms_by_class": "not measured (no device events)",
                 "wall_ms_profiled": wall_ms}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return {"wall_ms_profiled": wall_ms, "device_busy_ms": busy,
+    flash = {n[:90]: round(v, 3) for n, v in by_name.items() if "flash" in n.lower()}
+    return {"wall_ms_profiled": wall_ms, "device_busy_ms": busy, "flash_kernels_ms": flash,
             "device_idle_share": max(0.0, 1 - busy / wall_ms),
             "device_ms_by_class": {k: round(v, 3) for k, v in
                                    sorted(by_class.items(), key=lambda kv: -kv[1])},
@@ -421,21 +656,305 @@ def phase_full(card):
     return launches
 
 
-def kernel_record(rows, launches):
+def _grads_compare(ga, gb):
+    """Global-norm relative difference and the least per-leaf cosine."""
+    import torch
+
+    na = torch.stack([g.float().square().sum() for g in ga.values()]).sum().sqrt().item()
+    nb = torch.stack([g.float().square().sum() for g in gb.values()]).sum().sqrt().item()
+    worst, worst_name = 1.0, None
+    for name in ga:
+        a, b = ga[name].double().flatten(), gb[name].double().flatten()
+        den = (a.norm() * b.norm()).item()
+        cos = 1.0 if den == 0 and a.norm().item() == b.norm().item() else (a @ b).item() / den
+        if cos < worst:
+            worst, worst_name = cos, name
+    return abs(na - nb) / nb, worst, worst_name
+
+
+def phase_train(card):
+    import dataclasses
+
+    import torch
+    from diffews_tpu_torch.configs import CLIPTextConfig, UNetConfig, VAEConfig
+    from diffews_tpu_torch.models.clip_text import CLIPTextModel
+    from diffews_tpu_torch.models.unet import UNet2DConditionModel
+    from diffews_tpu_torch.models.vae import AutoencoderKL
+    from diffews_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bwd
+    from diffews_tpu_torch.training import lr as lr_lib
+    from diffews_tpu_torch.training.state import (TrainerConfig, TrainState, bind_params,
+                                                  init_state, make_episode_loss,
+                                                  make_grad_fn, make_optimizer,
+                                                  make_train_step, training_text_embed)
+    from diffews_tpu_torch.utils.init import build_module
+
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    cl = torch.channels_last
+    t0 = time.time()
+    unet = build_module(UNet2DConditionModel, UNetConfig.sd21(), seed=0,
+                        device="cuda").to(memory_format=cl)
+    vae_f32 = build_module(AutoencoderKL, VAEConfig.sd(), seed=1,
+                           device="cuda").to(memory_format=cl).requires_grad_(False)
+    vae = build_module(AutoencoderKL, VAEConfig.sd(), seed=1, device="cuda").to(
+        dtype=torch.bfloat16, memory_format=cl).requires_grad_(False)
+    text_cfg = CLIPTextConfig.sd21()
+    text = build_module(CLIPTextModel, text_cfg, seed=2, device="cuda")
+    text_embed = training_text_embed(text, text_cfg)  # (1, 77, 1024) f32
+    del text
+    cfg = TrainerConfig()  # bf16, remat, AdamW 1e-5 (wd 1e-2, clip 1.0, bf16 mu)
+    state = init_state(cfg, dict(unet.named_parameters()), device="cuda")
+    step = make_train_step(cfg, unet)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.synchronize()
+    res = {"setup_s": time.time() - t0, "config": {
+        "unet": "SD-2.1 (8-ch conv_in_ref)", "vae": "SD", "text": "OpenCLIP ViT-H",
+        "px": 512, "batch": 1, "shots": 1, "compute": "bf16", "master": "f32",
+        "remat": cfg.remat, "lr": cfg.learning_rate, "weight_decay": cfg.adam_weight_decay,
+        "max_grad_norm": cfg.max_grad_norm, "adam_mu": "bf16"}}
+    snap = lambda: {n: state.params[n].detach().clone() for n in (
+        "conv_in.weight", "conv_in_ref.weight", "conv_out.weight",
+        "down_blocks.0.attentions.0.transformer_blocks.0.attn1.to_q.weight")}
+
+    # (a) launches of one micro-step, then a few steps
+    b1 = _train_batch(1, 1, 1, 512, seed=5, device="cuda")
+    state, m = step(state, b1, gen, vae, text_embed)  # cuDNN plans, allocator
+    torch.cuda.synchronize()
+    flash_attention.launches = 0
+    flash_attention_bwd.dq_launches = flash_attention_bwd.dkv_launches = 0
+    state, m = step(state, b1, gen, vae, text_embed)
+    torch.cuda.synchronize()
+    launches = {"flash_attention_fwd": flash_attention.launches,
+                "flash_attention_bwd_dq": flash_attention_bwd.dq_launches,
+                "flash_attention_bwd_dkv": flash_attention_bwd.dkv_launches}
+    check(launches == {"flash_attention_fwd": 65, "flash_attention_bwd_dq": 32,
+                       "flash_attention_bwd_dkv": 32},
+          f"a 1-shot micro-step launched {launches}; expected 65 forward (32 + 32 "
+          "recomputed under remat + 1 VAE encode), 32 dq, 32 dkv")
+    before = snap()
+    torch.cuda.reset_peak_memory_stats()
+    synced, losses = [], []
+    for i in range(3):
+        batch = _train_batch(1, 1, 1, 512, seed=10 + i, device="cuda")
+        t1 = time.time()
+        state, m = step(state, batch, gen, vae, text_embed)
+        losses.append(float(m["loss"]))  # host read: the step's sync
+        synced.append(time.time() - t1)
+        check(np.isfinite(losses[-1]) and float(m["grad_norm"]) > 0,
+              f"step {i}: loss {losses[-1]}, grad norm {float(m['grad_norm'])}")
+    peak = torch.cuda.max_memory_allocated()
+    after = snap()
+    moved = {n: not torch.equal(before[n], after[n]) for n in before}
+    check(all(moved.values()), f"params did not move: {moved}")
+
+    def window(gas, n_steps):
+        batches = [_train_batch(gas, 1, 1, 512, seed=100 + i, device="cuda")
+                   for i in range(n_steps)]
+        nonlocal state
+        torch.cuda.synchronize()
+        t1 = time.time()
+        for batch in batches:
+            state, m = step(state, batch, gen, vae, text_embed)
+        loss = float(m["loss"])  # one host read for the window
+        return (time.time() - t1) / n_steps, loss
+
+    win1, _ = window(1, 5)
+    b4 = _train_batch(4, 1, 1, 512, seed=20, device="cuda")
+    state, m = step(state, b4, gen, vae, text_embed)  # warm-up at gas 4
+    synced4 = []
+    for i in range(2):
+        t1 = time.time()
+        state, m = step(state, b4, gen, vae, text_embed)
+        float(m["loss"])
+        synced4.append(time.time() - t1)
+    win4, _ = window(4, 3)
+    prof = profile_episode(lambda: step(state, b1, gen, vae, text_embed))
+    res["step"] = {"kernel_launches_per_micro_step": launches, "losses": losses,
+                   "grad_norm_last": float(m["grad_norm"]), "params_moved": moved,
+                   "gas1_synced_s": synced, "gas1_synced_s_median": statistics.median(synced),
+                   "gas1_window5_s_per_step": win1, "gas4_synced_s": synced4,
+                   "gas4_window3_s_per_step": win4, "peak_mem_gb_gas1": peak / 1e9,
+                   "card": card}
+    emit({"phase": "train_1shot_b1_512px_bf16", **res["step"]})
+    res["profile_step_gas1"] = prof
+    emit({"phase": "profile_train_step_gas1", **prof, "card": card})
+    # where a gas-1 step goes: the micro-step (forward, recompute, backward)
+    # and the optimizer update, each profiled alone
+    micro1, grads = {k: v[0] for k, v in b1.items()}, None
+
+    def micro_step():
+        nonlocal grads
+        grads = make_grad_fn(cfg, unet)(state.params, vae, text_embed, micro1, gen)[1]
+
+    res["profile_micro_step"] = profile_episode(micro_step)
+    res["profile_optimizer"] = profile_episode(
+        lambda: make_optimizer(cfg).update(grads, state.opt_state, state.params))
+    del grads
+    for part in ("micro_step", "optimizer"):
+        emit({"phase": f"profile_train_{part}", **res[f"profile_{part}"], "card": card})
+
+    # (b) f32, TF32 off: the micro-step through the kernels vs the dense path
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    micro = {k: v[0] for k, v in b1.items()}
+    noise32 = torch.randn((_n_images(1, 1, False), 64, 64, 4), device="cuda",
+                          generator=torch.Generator(device="cuda").manual_seed(8))
+    l_k, g_k = make_grad_fn(cfg32, unet)(state.params, vae_f32, text_embed, micro, noise32)
+    l_d, g_d = make_grad_fn(dataclasses.replace(cfg32, attn_impl="dense"), unet)(
+        state.params, vae_f32, text_embed, micro, noise32)
+    loss_rel = abs(l_k.item() - l_d.item()) / abs(l_d.item())
+    norm_rel, min_cos, min_cos_leaf = _grads_compare(g_k, g_d)
+    del g_d
+    # a first-order check of the gradient at full width: stepping the
+    # weights by −ε·g/‖g‖ lowers the loss by ≈ ε·‖g‖ while ε is small; an
+    # Adam step from a fresh state, ≈ −lr·sign(g), by ≈ lr·‖g‖₁
+    eval_loss = make_episode_loss(dataclasses.replace(cfg32, remat=False), unet)
+    g_l2 = torch.stack([g.square().sum() for g in g_k.values()]).sum().sqrt().item()
+    g_l1 = sum(g.abs().sum().item() for g in g_k.values())
+    with torch.no_grad():
+        with bind_params(unet, {n: p.detach() for n, p in state.params.items()}):
+            l_0 = eval_loss(vae_f32, text_embed, micro, noise32).item()
+        probes = []
+        for eps in (1e-2, 1e-3, 1e-4):
+            w = {n: p.detach() - (eps / g_l2) * g_k[n] for n, p in state.params.items()}
+            with bind_params(unet, w):
+                d_l = eval_loss(vae_f32, text_embed, micro, noise32).item() - l_0
+            probes.append({"eps": eps, "predicted": -eps * g_l2, "measured": d_l,
+                           "ratio": d_l / (-eps * g_l2)})
+            del w
+    del g_k
+    torch.cuda.empty_cache()
+    res["gradient_probe_f32"] = {"loss": l_0, "grad_l2": g_l2, "grad_l1": g_l1,
+                                 "steps_along_minus_grad": probes,
+                                 "adam_first_step_first_order_dloss": {
+                                     "lr1e-4": -1e-4 * g_l1, "lr1e-5": -1e-5 * g_l1}}
+    emit({"phase": "train_gradient_probe_f32", **res["gradient_probe_f32"]})
+    res["f32_kernels_vs_dense"] = {"loss_rel": loss_rel, "grad_norm_rel": norm_rel,
+                                   "min_leaf_cosine": min_cos, "min_cosine_leaf": min_cos_leaf}
+    emit({"phase": "train_f32_kernels_vs_dense", **res["f32_kernels_vs_dense"]})
+    check(loss_rel <= 1e-5 and norm_rel <= 1e-3 and min_cos >= 0.999,
+          f"f32 micro-step, kernels vs dense: {res['f32_kernels_vs_dense']}")
+    # the loss over 5 steps on one fixed batch with fixed noise, each run
+    # from the same weights and a fresh optimizer state: bf16 at lr 1e-4, and
+    # beside it f32 (TF32 off) at lr 1e-4 and bf16 at lr 1e-5; with the share
+    # of bf16 compute weights the 5 steps changed
+    start = {n: p.detach().clone() for n, p in state.params.items()}
+    res["fixed_batch"] = {}
+    for label, dt, lr in (("bf16_lr1e-4", torch.bfloat16, 1e-4),
+                          ("f32_lr1e-4", torch.float32, 1e-4),
+                          ("bf16_lr1e-5", torch.bfloat16, 1e-5)):
+        c = dataclasses.replace(cfg, learning_rate=lr, lr_scheduler="constant", compute_dtype=dt)
+        params = {n: p.clone().requires_grad_() for n, p in start.items()}
+        st = TrainState(params, make_optimizer(c).init(params), None,
+                        torch.zeros((), dtype=torch.int32, device="cuda"))
+        run = make_train_step(c, unet)
+        losses = []
+        for _ in range(5):
+            st, m = run(st, b1, torch.Generator(device="cuda").manual_seed(7),
+                        vae_f32 if dt == torch.float32 else vae, text_embed)
+            losses.append(float(m["loss"]))
+        changed = sum(int((params[n].bfloat16() != start[n].bfloat16()).sum()) for n in start)
+        total = sum(p.numel() for p in start.values())
+        res["fixed_batch"][label] = {"losses": losses, "falls": losses[-1] < losses[0],
+                                     "monotone": all(x > y for x, y in zip(losses, losses[1:])),
+                                     "bf16_weights_changed": changed / total}
+        del st, params
+        torch.cuda.empty_cache()
+    del start, vae_f32
+    emit({"phase": "train_fixed_batch", **res["fixed_batch"]})
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+
+    # (c) 5 shots, the last two padded, bf16: their content changes nothing
+    grad5 = make_grad_fn(cfg, unet)
+    b5 = {k: v[0] for k, v in _train_batch(1, 1, 5, 512, seed=30, padded=2,
+                                           device="cuda").items()}
+    b5o = dict(b5, supports=b5["supports"].clone(), s_mask3=b5["s_mask3"].clone())
+    b5o["supports"][:, 3:] = 255 - b5["supports"][:, 3:]
+    b5o["s_mask3"][:, 3:] = 1 - b5["s_mask3"][:, 3:]
+    noise5 = torch.randn((_n_images(1, 5, False), 64, 64, 4), device="cuda",
+                         dtype=torch.bfloat16,
+                         generator=torch.Generator(device="cuda").manual_seed(9))
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    l_a, g_a = grad5(state.params, vae, text_embed, b5, noise5)
+    l_r, g_r = grad5(state.params, vae, text_embed, b5, noise5)
+    repeat_same = torch.equal(l_a, l_r) and all(torch.equal(g_a[n], g_r[n]) for n in g_a)
+    del g_r
+    l_o, g_o = grad5(state.params, vae, text_embed, b5o, noise5)
+    torch.backends.cudnn.deterministic = det
+    padded_same = torch.equal(l_a, l_o) and all(torch.equal(g_a[n], g_o[n]) for n in g_a)
+    max_diff = max((g_a[n].float() - g_o[n].float()).abs().max().item() for n in g_a)
+    del g_a, g_o
+    torch.cuda.empty_cache()
+    res["five_shot_padded"] = {"repeat_bit_identical": repeat_same,
+                               "padded_content_bit_identical": padded_same,
+                               "loss": l_a.item(), "loss_other_padding": l_o.item(),
+                               "max_grad_diff": max_diff}
+    emit({"phase": "train_5shot_2padded_bf16", **res["five_shot_padded"]})
+    check(padded_same, f"padded shots' content changed the loss or a gradient: "
+                       f"{res['five_shot_padded']}")
+
+    # (d) the attn-mask variant: conv_in_ref is unused, gets a zero gradient
+    # and still decays (p ← p − lr·wd·p); a fresh optimizer state isolates it
+    cfg_am = dataclasses.replace(cfg, attn_mask_variant=True)
+    st_am = TrainState(state.params, make_optimizer(cfg_am).init(state.params), None,
+                       torch.zeros((), dtype=torch.int32, device="cuda"))
+    ref0 = state.params["conv_in_ref.weight"].detach().clone()
+    st_am, m = make_train_step(cfg_am, unet)(st_am, b1, gen, vae, text_embed)
+    lr0 = lr_lib.get_schedule(cfg.lr_scheduler, cfg.learning_rate, cfg.max_train_steps,
+                              cfg.lr_warmup_steps, power=cfg.lr_power)(st_am.step - 1)
+    expect = ref0 + (-lr0) * (cfg.adam_weight_decay * ref0)
+    ref1 = st_am.params["conv_in_ref.weight"].detach()
+    decayed = torch.equal(ref1, expect) and not torch.equal(ref1, ref0)
+    res["attn_mask_step"] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                             "conv_in_ref_decayed_exactly": decayed,
+                             "conv_in_ref_max_change": (ref1 - ref0).abs().max().item()}
+    emit({"phase": "train_attn_mask_variant", **res["attn_mask_step"]})
+    check(np.isfinite(res["attn_mask_step"]["loss"]) and decayed,
+          f"attn-mask variant step: {res['attn_mask_step']}")
+    RESULTS["train"] = res
+    return launches
+
+
+def kernel_record(rows, bwd_rows, episode_launches, train_launches):
+    """One entry per kernel; `launches` is the count of this slice's path
+    (one training micro-step), `launches_by_path` adds the episode's."""
     main = [r for r in rows if r["shape"] == MAIN_SHAPE and r["dtype"] == "bfloat16"][0]
-    return {"kernels": [{
-        "name": "flash_attention_fwd", "route": "cuda",
-        "source": "diffews_tpu_torch/ops/csrc/flash_attention_fwd.cu",
-        "replaces": "diffews_tpu/ops/flash_attention.py:73",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-        "bound_by": main["bound_by"], "library_ms": main["library_ms"]}]}
+    bmain = [r for r in bwd_rows
+             if r["shape"] == BWD_MAIN_SHAPE and r["dtype"] == "bfloat16"][0]
+    src = "diffews_tpu_torch/ops/csrc/"
+    fwd = {"name": "flash_attention_fwd", "route": "cuda", "source": src + "flash_attention_fwd.cu",
+           "replaces": "diffews_tpu/ops/flash_attention.py:73",
+           "launches": train_launches["flash_attention_fwd"],
+           "launches_by_path": {"episode_1shot_b4": episode_launches,
+                                "train_micro_step_1shot_b1": train_launches["flash_attention_fwd"]},
+           "max_abs_err": max(r["max_abs_err"] for r in rows), "ms": main["ms"],
+           "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+           "bound_by": main["bound_by"], "library_ms": main["library_ms"]}
+    out = [fwd]
+    for kind, line, errs in (("dq", 179, ("dq",)), ("dkv", 212, ("dk", "dv"))):
+        name = f"flash_attention_bwd_{kind}"
+        out.append({
+            "name": name, "route": "cuda", "source": src + "flash_attention_bwd.cu",
+            "replaces": f"diffews_tpu/ops/flash_attention.py:{line}",
+            "launches": train_launches[name],
+            "max_abs_err": max(r["max_abs_err"][e] for r in bwd_rows for e in errs),
+            "ms": bmain[f"{kind}_ms"], "plain_ms": bmain["plain_ms"],
+            "bound_ms": bmain[f"{kind}_bound_ms"], "bound_by": bmain[f"{kind}_bound_by"],
+            "library_ms": bmain["library_ms"],
+            "shape": f"B1 H5 4096x8192 d64 bf16; plain_ms and library_ms are the whole "
+                     "backward (dq, dk, dv)"})
+    return {"kernels": out}
+
+
+PHASES = "device,build,kernel,bwd,tiny,tiny_train,full,train"
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="device,build,kernel,tiny,full",
+    ap.add_argument("--phases", default=PHASES,
                     help="comma-separated subset of the phases (all by default)")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
@@ -450,17 +969,20 @@ def main():
     if "build" in phases:
         phase_build()
     rows = phase_kernel() if "kernel" in phases else []
+    bwd_rows = phase_bwd() if "bwd" in phases else []
     if "tiny" in phases:
         phase_tiny()
-    launches = phase_full(card) if "full" in phases else None
+    if "tiny_train" in phases:
+        phase_tiny_train()
+    episode_launches = phase_full(card) if "full" in phases else None
+    train_launches = phase_train(card) if "train" in phases else None
     RESULTS["seconds"] = time.time() - t_start
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(RESULTS, f, indent=1)
-    if rows and launches is not None:
-        emit(kernel_record(rows, launches))
-    else:
-        fail(f"phases {sorted(phases)} ran; the kernel record needs kernel and full")
+    if phases != set(PHASES.split(",")):
+        fail(f"phases {sorted(phases)} ran; the kernel record needs all of {PHASES}")
+    emit(kernel_record(rows, bwd_rows, episode_launches, train_launches))
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
 

@@ -17,9 +17,14 @@ streams run in one forward:
     nearest-resized to each level's token grid (`unet.py:313-324`);
   - the output head runs on the query rows only (`unet.py:404-409`).
 
+`remat=True` recomputes activations in the backward pass at the JAX
+package's granularity (`unet.py:332-396`): each down layer (resnet +
+attention), the mid block and each up layer (skip concat + resnet +
+attention) run under `torch.utils.checkpoint` (non-reentrant).
+
 `state_dict` keys are the diffusers `UNet2DConditionModel` keys plus
-`conv_in_ref.*`.  Support-KV capture/caching, shot-parallel attention and
-rematerialisation are not ported yet (ROADMAP A8, A11, A9).
+`conv_in_ref.*`.  Support-KV capture/caching and shot-parallel attention
+are not ported yet (ROADMAP A8, A11).
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from typing import Dict, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from diffews_tpu_torch.configs import UNetConfig
 from diffews_tpu_torch.models.layers import (Conv2d, Downsample2D, FeedForward,
@@ -146,6 +152,22 @@ class MidBlock(nn.Module):
         self.attentions = nn.ModuleList([Transformer2DModel(c, heads, cfg)])
 
 
+def _down_layer(h, emb, ctx, res, attn, st):
+    h = res(h, emb)
+    return h if attn is None else attn(h, ctx, st)
+
+
+def _mid(h, emb, ctx, mid, st):
+    h = mid.resnets[0](h, emb)
+    h = mid.attentions[0](h, ctx, st)
+    return mid.resnets[1](h, emb)
+
+
+def _up_layer(h, skip, emb, ctx, res, attn, st):
+    h = res(torch.cat([h, skip], dim=-1), emb)
+    return h if attn is None else attn(h, ctx, st)
+
+
 class UNet2DConditionModel(nn.Module):
     def __init__(self, cfg: UNetConfig):
         super().__init__()
@@ -204,6 +226,7 @@ class UNet2DConditionModel(nn.Module):
         shot_mask: Optional[torch.Tensor] = None,
         ref_mask: Optional[torch.Tensor] = None,
         attn_impl: str = "auto",
+        remat: bool = False,
     ) -> torch.Tensor:
         """Joint support+query forward.
 
@@ -212,7 +235,8 @@ class UNet2DConditionModel(nn.Module):
         ref_in_channels) support latents (in_channels under `ref_mask`);
         ref_context: optional (B, N, L, cross_dim), default `context`
         repeated over shots; shot_mask: optional (B, N) bool; ref_mask:
-        optional (B, N, Hm, Wm) binary support masks (attn-mask variant).
+        optional (B, N, Hm, Wm) binary support masks (attn-mask variant);
+        remat: recompute each layer's activations in the backward pass.
         Returns (B, H, W, out_channels) for the query rows."""
         cfg = self.cfg
         b = sample.shape[0]
@@ -224,7 +248,10 @@ class UNet2DConditionModel(nn.Module):
             n_shots, ref_rows, ref_flat = 0, None, None
 
         # --- time embedding (shared across both streams) ---
-        ts = torch.as_tensor(timestep, dtype=torch.float32, device=sample.device).reshape(-1)
+        if isinstance(timestep, torch.Tensor):
+            ts = timestep.to(device=sample.device, dtype=torch.float32).reshape(-1)
+        else:  # filled on the device: no host copy, no stream sync
+            ts = torch.full((1,), float(timestep), dtype=torch.float32, device=sample.device)
         t_emb = timestep_embedding(ts, cfg.block_out_channels[0],
                                    flip_sin_to_cos=cfg.flip_sin_to_cos,
                                    downscale_freq_shift=cfg.freq_shift,
@@ -266,31 +293,30 @@ class UNet2DConditionModel(nn.Module):
         def streams(sid):
             return _Streams(ref_rows, n_shots, shot_mask, sup_biases.get(sid), attn_impl)
 
+        def layer(fn, *args):
+            return checkpoint(fn, *args, use_reentrant=False) if remat else fn(*args)
+
         n = cfg.num_levels
         # --- down path ---
         down_states = [h]
         for i, blk in enumerate(self.down_blocks):
             for j, res in enumerate(blk.resnets):
-                h = res(h, emb)
-                if len(blk.attentions):
-                    h = blk.attentions[j](h, ctx, streams(i))
+                attn = blk.attentions[j] if len(blk.attentions) else None
+                h = layer(_down_layer, h, emb, ctx, res, attn, streams(i))
                 down_states.append(h)
             if hasattr(blk, "downsamplers"):
                 h = blk.downsamplers[0](h)
                 down_states.append(h)
 
         # --- mid ---
-        mid = self.mid_block
-        h = mid.resnets[0](h, emb)
-        h = mid.attentions[0](h, ctx, streams(n - 1))
-        h = mid.resnets[1](h, emb)
+        h = layer(_mid, h, emb, ctx, self.mid_block, streams(n - 1))
 
         # --- up path ---
         for i, blk in enumerate(self.up_blocks):
             for j, res in enumerate(blk.resnets):
-                h = res(torch.cat([h, down_states.pop()], dim=-1), emb)
-                if len(blk.attentions):
-                    h = blk.attentions[j](h, ctx, streams(n - 1 - i))
+                attn = blk.attentions[j] if len(blk.attentions) else None
+                h = layer(_up_layer, h, down_states.pop(), emb, ctx, res, attn,
+                          streams(n - 1 - i))
             if hasattr(blk, "upsamplers"):
                 h = blk.upsamplers[0](h)
 

@@ -2,12 +2,15 @@
 
 The `resnet_impl="xla"` path of the JAX package: plain resnet blocks, the
 mid-block attention through `ops.attention.fused_kv_attention` (the flash
-kernel on the card), deterministic posterior-mean latents for eval.
+kernel on the card), deterministic posterior-mean latents for eval and
+reparametrised posterior samples for training.
 `state_dict` keys are the diffusers AutoencoderKL keys (modern
 `to_q/to_k/to_v/to_out.0` names; `checkpoint.py` maps the legacy ones).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
@@ -141,6 +144,22 @@ class AutoencoderKL(nn.Module):
         """Deterministic latent: posterior mean x scaling_factor (eval path)."""
         moments = self.encode_moments(x, attn_impl)
         return moments[..., : self.cfg.latent_channels] * self.cfg.scaling_factor
+
+    def sample_latent(self, x: torch.Tensor, noise: Optional[torch.Tensor] = None, *,
+                      generator: Optional[torch.Generator] = None,
+                      attn_impl: str = "auto") -> torch.Tensor:
+        """Reparametrised posterior sample x scaling_factor (train path,
+        `vae.py:133-142`): logvar clipped to [-30, 20], std = exp(logvar/2),
+        (mean + std·noise)·scaling_factor.  `noise` is standard normal of
+        the latent's shape (tests feed the JAX package's draws); without it
+        the draw comes from `generator` in the latent's dtype."""
+        moments = self.encode_moments(x, attn_impl)
+        mean, logvar = moments.chunk(2, dim=-1)
+        std = torch.exp(0.5 * logvar.clamp(-30.0, 20.0))
+        if noise is None:
+            noise = torch.randn(mean.shape, generator=generator, dtype=mean.dtype,
+                                device=mean.device)
+        return (mean + std * noise.to(mean.dtype)) * self.cfg.scaling_factor
 
     def decode(self, z: torch.Tensor, attn_impl: str = "auto") -> torch.Tensor:
         """Scaled latent -> NHWC image (unclipped; the pipeline clips)."""

@@ -6,8 +6,9 @@ with a plain C interface (no PyTorch headers, so a build takes seconds):
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas=-v -o build/kernels/<name>-<hash>.so <name>.cu
 
-The library name carries a hash of the source and the flags, so an edited
-source never loads a stale build.  `build/` sits at the root of the
+The library name carries a hash of the source, the shared headers
+(`csrc/*.cuh`) and the flags, so an edited source or header never loads a
+stale build.  `build/` sits at the root of the
 checkout and is git-ignored.  Libraries are built at first use: nothing
 here runs at import time, so CPU-only hosts import every module.
 """
@@ -53,8 +54,13 @@ def sources() -> list:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+    """The library path of `csrc/<name>.cu`, keyed by the source, every
+    `csrc/*.cuh` header (any source may include any of them) and the
+    flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:12]}.so"
 
 

@@ -1,22 +1,32 @@
-"""Flash-attention forward: a hand-written CUDA kernel and its plain version.
+"""Flash attention: hand-written CUDA kernels and their plain versions.
 
-Port of `diffews_tpu/ops/flash_attention.py` (`flash_attention` and
-`flash_attention_lse`, whose Pallas kernel is `_flash_kernel`).  DiffewS
-query tokens attend over `[own ‖ n-shot support]` keys, so at 512px the
-UNet's 64x64 level runs Sq = 4096 against Skv = 4096·(1+n); the VAE mid
-block runs one head with d = 512.  The kernel
-(`ops/csrc/flash_attention_fwd.cu`) streams K/V tiles through shared
-memory with an online softmax and never writes the (Sq, Skv) probabilities
-to device memory; bf16 runs on the tensor cores, f32 on the FMA pipes.
+Port of `diffews_tpu/ops/flash_attention.py` (`flash_attention` with its
+custom VJP, and `flash_attention_lse`).  Its three Pallas kernels become
+CUDA kernels: `_flash_kernel` (`ops/csrc/flash_attention_fwd.cu`) and the
+backward pair `_bwd_dq_kernel` / `_bwd_dkv_kernel`
+(`ops/csrc/flash_attention_bwd.cu`).  DiffewS query tokens attend over
+`[own ‖ n-shot support]` keys, so at 512px the UNet's 64x64 level runs
+Sq = 4096 against Skv = 4096·(1+n); the VAE mid block runs one head with
+d = 512.  The kernels stream tiles through shared memory and never write
+the (Sq, Skv) probabilities to device memory; bf16 runs on the tensor
+cores, f32 on the FMA pipes.
 
-Dispatch: a CUDA tensor launches the kernel (or raises); a CPU tensor takes
-`flash_attention_reference`, the plain dense f32 softmax with the same
-boolean mask and the same LSE.  There is no fallback from the kernel.
-`flash_attention.launches` counts kernel launches (both entry points).
+Dispatch: a CUDA tensor launches the kernels (or raises); a CPU tensor
+takes the plain versions, `flash_attention_reference` (dense f32 softmax
+with the same boolean mask and the same LSE) and
+`flash_attention_bwd_reference` (the backward written as the kernels'
+formula).  There is no fallback from a kernel.  `flash_attention` is one
+`torch.autograd.Function` on both devices: it saves (q, k, v, mask, O, LSE)
+and its backward calls `flash_attention_bwd`.  `flash_attention_lse` is
+forward-only, as in the JAX package: on the card it raises when an input
+requires grad, and so does `flash_attention` at a head dim with no
+backward kernel (d = 512).  Launch counters: `flash_attention.launches`
+(forward, both entry points), `flash_attention_bwd.dq_launches` and
+`.dkv_launches`.
 
-Masked keys get exactly zero weight; a query row with no valid key gets
-O = 0 and LSE = -inf (the main path never builds one: every query row
-keeps its own tokens).
+Masked keys get exactly zero weight (and zero dK/dV); a query row with no
+valid key gets O = 0, LSE = -inf and dQ = 0 (the main path never builds
+one: every query row keeps its own tokens).
 """
 
 from __future__ import annotations
@@ -26,7 +36,8 @@ from typing import Optional, Tuple
 
 import torch
 
-HEAD_DIMS = (16, 32, 64, 512)  # the kernel's instantiations
+HEAD_DIMS = (16, 32, 64, 512)  # the forward kernel's instantiations
+BWD_HEAD_DIMS = (16, 32, 64)   # the backward kernels'; the VAE's d = 512 is frozen
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -107,18 +118,51 @@ def _launch(q, k, v, scale, kv_mask):
     return out, lse
 
 
-def flash_attention_lse(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-    scale: Optional[float] = None, kv_mask: Optional[torch.Tensor] = None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """`flash_attention` that also returns the f32 log-sum-exp (B, Sq, H)."""
-    if scale is None:
-        scale = q.shape[-1] ** -0.5
+def _requires_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def _forward(q, k, v, scale, kv_mask):
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, scale=scale, kv_mask=kv_mask)
     if q.device.type != "cuda":
         raise ValueError(f"no flash attention for device {q.device}")
     return _launch(q, k, v, scale, kv_mask)
+
+
+def flash_attention_lse(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+    scale: Optional[float] = None, kv_mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`flash_attention` that also returns the f32 log-sum-exp (B, Sq, H).
+
+    Forward-only, as its JAX counterpart: on the card it raises when an
+    input requires grad (the kernel's outputs carry no gradient); take
+    gradients through `flash_attention`."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type == "cuda" and _requires_grad(q, k, v):
+        raise RuntimeError("flash_attention_lse is forward-only: its inputs require "
+                           "grad; use flash_attention for a differentiable call")
+    return _forward(q, k, v, scale, kv_mask)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """O = flash attention; backward through `flash_attention_bwd`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, scale):
+        out, lse = _forward(q, k, v, scale, kv_mask)
+        ctx.save_for_backward(q, k, v, kv_mask, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, kv_mask, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, g, scale=ctx.scale,
+                                         kv_mask=kv_mask)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(
@@ -127,8 +171,126 @@ def flash_attention(
 ) -> torch.Tensor:
     """Flash attention over (B, Sq, H, D) queries and (B, Skv, H, D) keys and
     values.  kv_mask: optional (B, Skv) bool, True = attend.  Returns
-    (B, Sq, H, D) in q's dtype."""
-    return flash_attention_lse(q, k, v, scale=scale, kv_mask=kv_mask)[0]
+    (B, Sq, H, D) in q's dtype; differentiable in q, k and v."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if not _requires_grad(q, k, v):
+        return _forward(q, k, v, scale, kv_mask)[0]
+    if q.device.type == "cuda" and q.shape[-1] not in BWD_HEAD_DIMS:
+        raise ValueError(f"flash attention has no backward kernel for head dim "
+                         f"{q.shape[-1]} (built: {BWD_HEAD_DIMS}); run it without grad")
+    return _FlashAttention.apply(q, k, v, kv_mask, float(scale))
 
 
 flash_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# backward
+# ---------------------------------------------------------------------------
+
+
+def flash_attention_bwd_reference(q, k, v, kv_mask, out, lse, g, scale):
+    """Plain backward, written as the kernels' formula (not autograd through
+    the dense forward): p = exp(scale·QKᵀ − LSE) with p = 0 for masked keys
+    and for rows with LSE = -inf, dp = g·Vᵀ, δ = rowsum(O∘g),
+    ds = p∘(dp − δ); dQ = scale·ds·K, dK = scale·dsᵀ·Q, dV = pᵀ·g, in f32.
+
+    q, out, g: (B, Sq, H, D); k, v: (B, Skv, H, D); kv_mask: (B, Skv) bool
+    or None; lse: (B, Sq, H) f32.  Returns (dq, dk, dv) in the input dtype."""
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    lse_t = lse.permute(0, 2, 1)[..., None]                # (B, H, Sq, 1)
+    ok = torch.isfinite(lse_t).expand(s.shape)
+    if kv_mask is not None:
+        ok = ok & kv_mask[:, None, None, :]
+    p = torch.where(ok, torch.exp(s - torch.where(torch.isfinite(lse_t), lse_t, 0.0)),
+                    torch.zeros((), dtype=s.dtype, device=s.device))
+    dp = torch.einsum("bqhd,bkhd->bhqk", gf, vf)
+    delta = (out.float() * gf).sum(-1).permute(0, 2, 1)[..., None]
+    ds = p * (dp - delta)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, gf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_bwd(q, k, v, g, lse, delta, kv_mask):
+    _check(q, k, v, kv_mask)
+    b, sq, h, d = q.shape
+    if d not in BWD_HEAD_DIMS:
+        raise ValueError(f"flash backward has no head dim {d} (built: {BWD_HEAD_DIMS})")
+    if g.shape != q.shape or g.dtype != q.dtype or not g.is_contiguous():
+        raise ValueError(f"g must be contiguous {tuple(q.shape)} {q.dtype}; got "
+                         f"{tuple(g.shape)} {g.dtype}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != (b, sq, h) or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous (B, Sq, H) float32 tensor; "
+                             f"got {t.dtype} {tuple(t.shape)}")
+    for name, t in (("g", g), ("lse", lse), ("delta", delta)):
+        if t.device != q.device or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned on {q.device}")
+
+
+def _bwd_call(fn_name, n_out, q, k, v, g, lse, delta, scale, kv_mask, outs):
+    from diffews_tpu_torch.ops import _build
+
+    _check_bwd(q, k, v, g, lse, delta, kv_mask)
+    fn = getattr(_build.load("flash_attention_bwd"), fn_name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * (7 + n_out) + [ctypes.c_int] * 6
+                   + [ctypes.c_float, ctypes.c_void_p])
+    b, sq, h, d = q.shape
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
+                 delta.data_ptr(), None if kv_mask is None else kv_mask.data_ptr(),
+                 *(t.data_ptr() for t in outs), b, h, sq, k.shape[1], d,
+                 _DTYPE_CODE[q.dtype], float(scale),
+                 torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{fn_name} launch failed: CUDA error {err}")
+
+
+def flash_attention_bwd_dq(q, k, v, g, lse, delta, *, scale: float,
+                           kv_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """dQ on the card (the dq kernel); delta = rowsum(O∘g), (B, Sq, H) f32."""
+    dq = torch.empty_like(q)
+    _bwd_call("flash_attention_bwd_dq", 1, q, k, v, g, lse, delta, scale, kv_mask, (dq,))
+    flash_attention_bwd.dq_launches += 1
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, g, lse, delta, *, scale: float,
+                            kv_mask: Optional[torch.Tensor] = None):
+    """(dK, dV) on the card (the dkv kernel); arguments as
+    `flash_attention_bwd_dq`."""
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _bwd_call("flash_attention_bwd_dkv", 2, q, k, v, g, lse, delta, scale, kv_mask, (dk, dv))
+    flash_attention_bwd.dkv_launches += 1
+    return dk, dv
+
+
+def flash_attention_bwd(q, k, v, out, lse, g, *, scale: float,
+                        kv_mask: Optional[torch.Tensor] = None):
+    """Gradients (dq, dk, dv) of `flash_attention` given the forward's O and
+    LSE and the output gradient g; shapes as `flash_attention_bwd_reference`.
+    A CUDA tensor launches the dq and dkv kernels, a CPU tensor takes the
+    plain version."""
+    g = g.contiguous()
+    if q.device.type == "cpu":
+        return flash_attention_bwd_reference(q, k, v, kv_mask, out, lse, g, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash attention backward for device {q.device}")
+    if out.shape != q.shape or out.dtype != q.dtype:
+        raise ValueError(f"out must be {tuple(q.shape)} {q.dtype}; got "
+                         f"{tuple(out.shape)} {out.dtype}")
+    # δ = rowsum(O∘g) in plain torch, as the JAX package computes it outside
+    # its kernels
+    delta = (out.float() * g.float()).sum(-1)
+    dq = flash_attention_bwd_dq(q, k, v, g, lse, delta, scale=scale, kv_mask=kv_mask)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, g, lse, delta, scale=scale, kv_mask=kv_mask)
+    return dq, dk, dv
+
+
+flash_attention_bwd.dq_launches = 0
+flash_attention_bwd.dkv_launches = 0

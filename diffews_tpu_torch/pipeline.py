@@ -58,8 +58,10 @@ def resolve_device(device=None) -> torch.device:
 
 def _true_div(x: torch.Tensor, c: float) -> torch.Tensor:
     """x / c as a true division.  A Python-scalar divisor makes CUDA
-    multiply by the reciprocal instead, which differs in the last bit."""
-    return x / torch.tensor(c, dtype=x.dtype, device=x.device)
+    multiply by the reciprocal instead, which differs in the last bit.  The
+    divisor is filled on the device (a host tensor copied there would
+    synchronise the stream)."""
+    return x / torch.full((), c, dtype=x.dtype, device=x.device)
 
 
 class DiffewsPipeline:

@@ -1,6 +1,6 @@
 """The port stands alone: `diffews_tpu_torch/` and `chip_smoke.py` import
-neither `jax` nor the JAX package, and the pipeline refuses to fall back to
-the CPU on a host without a CUDA device."""
+neither `jax`, `optax` nor the JAX package, and the pipeline refuses to
+fall back to the CPU on a host without a CUDA device."""
 
 import ast
 import os
@@ -22,8 +22,8 @@ def _port_sources():
 
 
 def _forbidden(name: str) -> bool:
-    return (name == "jax" or name.startswith("jax.") or name == "diffews_tpu"
-            or name.startswith("diffews_tpu."))
+    return any(name == top or name.startswith(top + ".")
+               for top in ("jax", "optax", "diffews_tpu"))
 
 
 def test_no_jax_or_reference_imports_in_port_sources():
@@ -44,9 +44,9 @@ def test_no_jax_or_reference_imports_in_port_sources():
 def test_importing_the_port_loads_no_jax():
     code = ("import sys\n"
             "import diffews_tpu_torch.pipeline, diffews_tpu_torch.checkpoint\n"
-            "import diffews_tpu_torch.ops._build\n"
-            "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-            "       or m == 'diffews_tpu' or m.startswith('diffews_tpu.')]\n"
+            "import diffews_tpu_torch.ops._build, diffews_tpu_torch.training.state\n"
+            "bad = [m for m in sys.modules if any(m == t or m.startswith(t + '.')\n"
+            "       for t in ('jax', 'optax', 'diffews_tpu'))]\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
