@@ -18,20 +18,34 @@ Phases, each of which fails the run (non-zero exit) on any error:
      every shape a B = 1, 1-shot, 512px training micro-step gives them,
      plus the 5-shot padded and attn-mask query shapes, f32 (TF32 off) and
      bf16, with kernel / plain / SDPA-backward times and the bounds;
-  5. tiny: a tiny-config f32 episode on the card (kernels) against the same
-     episode on the CPU (plain versions);
-  6. tiny_train: two tiny f32 training steps at gas 2 on the card against
+  5. norm: the GroupNorm kernels (stats, apply) against their plain version
+     at every GroupNorm+SiLU shape of a 1-shot batch-4 512px episode
+     (recorded from the episode itself), f32 (TF32 off) and bf16, with
+     kernel / plain / `F.group_norm` + `F.silu` times and the byte bounds;
+  6. fused: the fused GroupNorm-apply + SiLU + 3x3 conv kernel against its
+     plain version at every shape the fused VAE gives it at 512px (encode
+     B = 12, decode B = 4), f32 (TF32 off) and bf16, statistics against a
+     fresh sum of its output, bit-identical repeats, with kernel / plain /
+     cuDNN `F.conv2d` times and the bounds;
+  7. tiny: tiny-config f32 episodes on the card (kernels) against the same
+     episodes on the CPU (plain versions), under `vae_impl` "xla",
+     "fused", "mixed" (threshold lowered) and "auto";
+  8. tiny_train: two tiny f32 training steps at gas 2 on the card against
      the same steps on the CPU, both conditioning variants;
-  7. full: random-weight SD-2.1 UNet (8-ch `conv_in_ref`), SD VAE and
+  9. full: random-weight SD-2.1 UNet (8-ch `conv_in_ref`), SD VAE and
      OpenCLIP ViT-H text tower at their published widths, bf16, 512px:
-     a 1-shot batch-4 episode (34 forward launches per `predict`) and a
-     5-shot episode with two padded shots against the 3-shot episode;
-  8. train: the training step at the same widths (bf16 compute, f32
-     masters, remat, AdamW): launches per micro-step (65 forward, 32 dq,
-     32 dkv), step times at gas 1 and 4, peak memory, a profile, the
-     f32 kernel path against the dense path, padded-shot invariance of
-     loss and gradients, and the attn-mask variant's decaying
-     `conv_in_ref`.
+     the 1-shot batch-4 episode under `vae_impl` "xla" (34 flash, 94 + 94
+     GroupNorm launches per `predict`), "fused" (44 + 44 GroupNorm, 50
+     fused) and "mixed", and a batch-1 episode under "auto", each timed and
+     profiled; a 5-shot episode with two padded shots against the 3-shot
+     episode, under "xla" and "fused"; the f32 (TF32 off) fused-vs-xla VAE
+     encode and decode;
+ 10. train: the training step at the same widths (bf16 compute, f32
+     masters, remat, AdamW): launches per micro-step (65 flash forward, 32
+     dq, 32 dkv, 109 + 109 GroupNorm), step times at gas 1 and 4, peak
+     memory, a profile, the f32 kernel path against the dense path,
+     padded-shot invariance of loss and gradients, and the attn-mask
+     variant's decaying `conv_in_ref`.
 
 Every line before the last is plain text or JSON; the last line is
 `{"ok": true, "device": {...}}`.  Detailed results also go to
@@ -55,6 +69,10 @@ PEAK_BF16 = 989e12   # H100 SXM dense tensor-core FLOP/s
 PEAK_F32 = 67e12     # H100 SXM f32 FLOP/s outside the tensor cores
 MEM_BW = 3.35e12     # H100 SXM HBM3 bytes/s
 TOL = {"f32_abs": 2e-4, "bf16_max": 2e-2, "bf16_mean": 2e-3, "lse": 1e-3}
+# GroupNorm and fused-resnet kernels against their plain versions, relative
+# to max|plain|: f32 (TF32 off) max; bf16 max and mean; statistics against
+# a fresh sum of the kernel's own output, relative to Σ|y| and Σy²
+OP_TOL = {"f32_max": 1e-4, "bf16_max": 2e-2, "bf16_mean": 2e-3, "stats": 1e-5}
 RESULTS: dict = {}
 
 
@@ -332,6 +350,225 @@ def phase_bwd():
     return rows
 
 
+def _full_bundle(**kw):
+    from diffews_tpu_torch.checkpoint import random_pipeline_bundle
+    from diffews_tpu_torch.configs import (CLIPTextConfig, SchedulerConfig,
+                                           UNetConfig, VAEConfig)
+
+    return random_pipeline_bundle(UNetConfig.sd21(), VAEConfig.sd(), CLIPTextConfig.sd21(),
+                                  SchedulerConfig.diffews(), seed=0, device="cuda", **kw)
+
+
+def episode_shapes():
+    """The GroupNorm+SiLU shapes of a 1-shot batch-4 512px bf16 episode
+    under `vae_impl="xla"` and the fused-resnet shapes under "fused", as
+    the episode gives them: one full-width episode each with recorders in
+    place of the two ops, which compute the plain versions meanwhile."""
+    import torch
+    from diffews_tpu_torch.models import layers
+    from diffews_tpu_torch.ops import fused_resnet, groupnorm
+    from diffews_tpu_torch.pipeline import DiffewsPipeline
+
+    gn, gn_fused, fr = {}, {}, {}
+    rec = {"gn": gn}
+
+    def gn_rec(x, weight, bias, *, groups, eps, act=None, impl="auto"):
+        key = (tuple(x.shape), groups)
+        rec["gn"][key] = rec["gn"].get(key, 0) + 1
+        return groupnorm.group_norm_act_reference(x, weight, bias, groups=groups, eps=eps,
+                                                  act=act)
+
+    def fr_rec(x, a, b, w, bias, residual=None, *, impl="auto"):
+        key = tuple(x.shape) + (w.shape[0], residual is not None)
+        fr[key] = fr.get(key, 0) + 1
+        return fused_resnet.gn_silu_conv3x3_reference(x, a, b, w, bias, residual)
+
+    saved = (layers.group_norm_act, fused_resnet.gn_silu_conv3x3)
+    layers.group_norm_act, fused_resnet.gn_silu_conv3x3 = gn_rec, fr_rec
+    try:
+        pipe = DiffewsPipeline(_full_bundle(), device="cuda", compute_dtype=torch.bfloat16)
+        q, sup, m = _episode(4, 1, 512, seed=2)
+        pipe.predict(q, sup, m)
+        pipe.vae_impl, rec["gn"] = "fused", gn_fused
+        pipe.predict(q, sup, m)
+        n_gn, n_gn_fused = sum(gn.values()), sum(gn_fused.values())
+    finally:
+        layers.group_norm_act, fused_resnet.gn_silu_conv3x3 = saved
+    del pipe
+    torch.cuda.empty_cache()
+    check(n_gn == 94 and n_gn_fused == 44 and sum(fr.values()) == 50,
+          f"episode sites: {n_gn} GroupNorm+SiLU (xla VAE; expected 94), {n_gn_fused} "
+          f"(fused VAE; 44), {sum(fr.values())} fused convs (50)")
+    return gn, fr
+
+
+def _op_errors(got, want, dtype):
+    """max |got − want|, and max and mean |got − want| relative to
+    max|want|, and whether they are within OP_TOL for the dtype."""
+    import torch
+
+    err = (got.float() - want.float()).abs()
+    top = max(want.float().abs().max().item(), 1e-30)
+    mx, mean = err.max().item() / top, err.mean().item() / top
+    ok = bool(torch.isfinite(got.float()).all())
+    if dtype == "float32":
+        ok = ok and mx <= OP_TOL["f32_max"]
+    else:
+        ok = ok and mx <= OP_TOL["bf16_max"] and mean <= OP_TOL["bf16_mean"]
+    return err.max().item(), mx, mean, ok
+
+
+def _stats_rel(y, s1, s2):
+    """The larger of |s1 − Σy| / Σ|y| and |s2 − Σy²| / Σy² over (b, c), the
+    sums of y taken in f64; and the largest of |s1 − Σy|, |s2 − Σy²|."""
+    yf = y.double()
+    d1 = (s1.double() - yf.sum((1, 2))).abs()
+    sq = yf.square().sum((1, 2))
+    d2 = (s2.double() - sq).abs()
+    e1 = (d1 / yf.abs().sum((1, 2)).clamp_min(1e-30)).max().item()
+    e2 = (d2 / sq.clamp_min(1e-30)).max().item()
+    return max(e1, e2), max(d1.max().item(), d2.max().item())
+
+
+NORM_MAIN_SHAPE = (12, 512, 512, 128)  # the VAE encoder's first resnets
+
+
+def phase_norm(gn_shapes):
+    import torch
+    import torch.nn.functional as F
+    from diffews_tpu_torch.ops import groupnorm as G
+    from diffews_tpu_torch.ops.fused_resnet import gn_affine, gn_stats
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    emit("norm phase: TF32 off; tolerances relative to max|plain| " + json.dumps(OP_TOL))
+    rows = []
+    for i, ((shape, groups), sites) in enumerate(sorted(gn_shapes.items())):
+        bsz, h, w, c = shape
+        g = torch.Generator(device="cuda").manual_seed(300 + i)
+        x32 = torch.randn(shape, generator=g, device="cuda") * 1.5 + 0.3
+        w32 = torch.rand((c,), generator=g, device="cuda") + 0.5
+        b32 = torch.randn((c,), generator=g, device="cuda") * 0.1
+        for dt in (torch.float32, torch.bfloat16):
+            name = str(dt).replace("torch.", "")
+            x, wt, bt = x32.to(dt), w32.to(dt), b32.to(dt)
+            y = G.group_norm_act(x, wt, bt, groups=groups, eps=1e-6, act="silu")
+            want = G.group_norm_act_reference(x, wt, bt, groups=groups, eps=1e-6, act="silu")
+            s1, s2 = G.gn_stats_kernel(x)
+            torch.cuda.synchronize()
+            err, mx, mean, ok = _op_errors(y, want, name)
+            srel, serr = _stats_rel(x, s1, s2)
+            same = torch.equal(y, G.group_norm_act(x, wt, bt, groups=groups, eps=1e-6,
+                                                   act="silu"))
+            ok = ok and srel <= OP_TOL["stats"] and same
+            a, bb = gn_affine(s1, s2, wt, bt, groups=groups, n=h * w * (c // groups), eps=1e-6)
+            a, bb = a.to(dt), bb.to(dt)
+            ms = cuda_ms(lambda: G.group_norm_act(x, wt, bt, groups=groups, eps=1e-6,
+                                                  act="silu"))
+            stats_ms = cuda_ms(lambda: G.gn_stats_kernel(x))
+            apply_ms = cuda_ms(lambda: G.gn_apply_kernel(x, a, bb, act="silu"))
+            plain_ms = cuda_ms(lambda: G.group_norm_act_reference(
+                x, wt, bt, groups=groups, eps=1e-6, act="silu"))
+            stats_plain_ms = cuda_ms(lambda: gn_stats(x))
+            xc = x.permute(0, 3, 1, 2)
+            lib_ms = cuda_ms(lambda: F.silu(F.group_norm(xc, groups, wt, bt, 1e-6)))
+            elt = x.element_size()
+            # stats reads x, writes two (B, C) f32; apply reads x, A and B,
+            # writes y; the whole op is both
+            stats_bound = (x.numel() * elt + 2 * bsz * c * 4) / MEM_BW * 1e3
+            apply_bound = (2 * x.numel() * elt + 2 * bsz * c * elt) / MEM_BW * 1e3
+            row = {"shape": list(shape), "groups": groups, "sites_per_episode": sites,
+                   "dtype": name, "max_abs_err": err, "max_rel_err": mx,
+                   "mean_rel_err": mean, "stats_max_abs_err": serr, "stats_rel_err": srel,
+                   "repeat_bit_identical": same, "ms": ms, "stats_ms": stats_ms,
+                   "apply_ms": apply_ms, "plain_ms": plain_ms,
+                   "stats_plain_ms": stats_plain_ms,
+                   "library_ms": lib_ms, "bound_ms": stats_bound + apply_bound,
+                   "stats_bound_ms": stats_bound, "apply_bound_ms": apply_bound,
+                   "bound_by": "bytes", "ok": ok}
+            rows.append(row)
+            emit(row)
+            check(ok, f"GroupNorm kernels disagree with the plain version at {shape} {name}: "
+                      f"{row}")
+            del x, y, want, a, bb
+        del x32
+        torch.cuda.empty_cache()
+    check(any(tuple(r["shape"]) == NORM_MAIN_SHAPE for r in rows),
+          f"the episode gave no GroupNorm at {NORM_MAIN_SHAPE}")
+    RESULTS["norm"] = rows
+    return rows
+
+
+FUSED_MAIN_SHAPE = (12, 512, 512, 128, 128, True)  # encoder, 512², conv2 with residual
+
+
+def phase_fused(fr_shapes):
+    import torch
+    import torch.nn.functional as F
+    from diffews_tpu_torch.ops import fused_resnet as FR
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    emit("fused phase: TF32 off; tolerances relative to max|plain| " + json.dumps(OP_TOL))
+    rows = []
+    for i, (key, sites) in enumerate(sorted(fr_shapes.items())):
+        bsz, h, w, cin, cout, has_res = key
+        g = torch.Generator(device="cuda").manual_seed(400 + i)
+        r = lambda *sh: torch.randn(sh, generator=g, device="cuda")
+        x32 = r(bsz, h, w, cin)
+        a = torch.rand((bsz, cin), generator=g, device="cuda") + 0.5
+        b = torch.rand((bsz, cin), generator=g, device="cuda") * 0.6 - 0.3
+        w32 = r(cout, cin, 3, 3) * (1.0 / (3 * cin ** 0.5))
+        bias = r(cout) * 0.1
+        res32 = r(bsz, h, w, cout) if has_res else None
+        for dt in (torch.float32, torch.bfloat16):
+            name = str(dt).replace("torch.", "")
+            x, wt = x32.to(dt), w32.to(dt)
+            res = None if res32 is None else res32.to(dt)
+            y, s1, s2 = FR.gn_silu_conv3x3(x, a, b, wt, bias, res)
+            want = FR.gn_silu_conv3x3_reference(x, a, b, wt, bias, res)[0]
+            torch.cuda.synchronize()
+            err, mx, mean, ok = _op_errors(y, want, name)
+            srel, serr = _stats_rel(y, s1, s2)
+            again = FR.gn_silu_conv3x3(x, a, b, wt, bias, res)
+            same = all(torch.equal(p, q) for p, q in zip((y, s1, s2), again))
+            ok = ok and srel <= OP_TOL["stats"] and same
+            del want, again
+            reps = (5, 2) if dt == torch.bfloat16 else (2, 1)
+            ms = cuda_ms(lambda: FR.gn_silu_conv3x3(x, a, b, wt, bias, res), *reps)
+            plain_ms = cuda_ms(lambda: FR.gn_silu_conv3x3_reference(x, a, b, wt, bias, res),
+                               reps=2, warmup=1)
+            # the library yardstick: cuDNN's conv of the same shape and dtype
+            # (no norm, activation, residual or statistics)
+            xc, wc = x.permute(0, 3, 1, 2), wt.to(memory_format=torch.channels_last)
+            bc = bias.to(dt)
+            lib_ms = cuda_ms(lambda: F.conv2d(xc, wc, bc, padding=1), *reps)
+            elt = x.element_size()
+            flops = 2.0 * bsz * h * w * 9 * cin * cout
+            nbytes = ((x.numel() + y.numel() + (0 if res is None else res.numel())
+                       + wt.numel()) * elt + 2 * bsz * cin * 4 + 2 * bsz * cout * 4 + cout * 4)
+            t_ops = flops / (PEAK_BF16 if dt == torch.bfloat16 else PEAK_F32)
+            t_mem = nbytes / MEM_BW
+            row = {"shape": [bsz, h, w, cin, cout], "residual": has_res,
+                   "sites_per_episode": sites, "dtype": name, "max_abs_err": err,
+                   "max_rel_err": mx, "mean_rel_err": mean, "stats_max_abs_err": serr,
+                   "stats_rel_err": srel, "repeat_bit_identical": same,
+                   "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                   "bound_ms": max(t_ops, t_mem) * 1e3,
+                   "bound_by": "operations" if t_ops >= t_mem else "bytes",
+                   "tflops": flops / ms / 1e9, "ok": ok}
+            rows.append(row)
+            emit(row)
+            check(ok, f"fused resnet kernel disagrees with the plain version at {key} {name}: "
+                      f"{row}")
+            del x, wt, res, y, s1, s2
+        del x32, res32
+        torch.cuda.empty_cache()
+    check(FUSED_MAIN_SHAPE in fr_shapes, f"the fused episode gave no call at {FUSED_MAIN_SHAPE}")
+    RESULTS["fused"] = rows
+    return rows
+
+
 def _episode(b, n, s, seed):
     rng = np.random.default_rng(seed)
     q = rng.integers(0, 256, (b, s, s, 3), dtype=np.uint8)
@@ -354,12 +591,32 @@ def _uint8_close(a, b, what):
     return int(d.max()), frac
 
 
+def _launch_counts():
+    from diffews_tpu_torch.ops import fused_resnet, groupnorm
+    from diffews_tpu_torch.ops.flash_attention import flash_attention
+
+    return {"flash_attention_fwd": flash_attention.launches,
+            "gn_stats": groupnorm.gn_stats_kernel.launches,
+            "gn_apply": groupnorm.gn_apply_kernel.launches,
+            "fused_gn_silu_conv3x3": fused_resnet.gn_silu_conv3x3.launches}
+
+
+def _zero_counts():
+    from diffews_tpu_torch.ops import fused_resnet, groupnorm
+    from diffews_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bwd
+
+    flash_attention.launches = 0
+    flash_attention_bwd.dq_launches = flash_attention_bwd.dkv_launches = 0
+    groupnorm.gn_stats_kernel.launches = groupnorm.gn_apply_kernel.launches = 0
+    fused_resnet.gn_silu_conv3x3.launches = 0
+
+
 def phase_tiny():
     import torch
     from diffews_tpu_torch.checkpoint import random_pipeline_bundle
     from diffews_tpu_torch.configs import (CLIPTextConfig, SchedulerConfig,
                                            UNetConfig, VAEConfig)
-    from diffews_tpu_torch.ops.flash_attention import flash_attention
+    from diffews_tpu_torch.models import vae
     from diffews_tpu_torch.pipeline import DiffewsPipeline
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -367,24 +624,39 @@ def phase_tiny():
     cfgs = (UNetConfig.tiny(), VAEConfig.tiny(), CLIPTextConfig.tiny(),
             SchedulerConfig.diffews())
     out = {}
-    for variant in (False, True):
-        pipes = {dev: DiffewsPipeline(random_pipeline_bundle(*cfgs, seed=0),
-                                      device=dev, attn_mask_variant=variant)
-                 for dev in ("cpu", "cuda")}
-        q, sup, m = _episode(2, 3, 32, seed=1)
-        sm = np.array([[True, True, False], [True, True, True]])
-        before = flash_attention.launches
-        res = {dev: p.predict(q, sup, m, shot_mask=sm, r_threshold=0.25)
-               for dev, p in pipes.items()}
-        launched = flash_attention.launches - before
-        check(launched > 0, "tiny episode on the card launched no kernel")
-        mx, frac = _uint8_close(res["cuda"].seg_colored, res["cpu"].seg_colored,
-                                f"tiny GPU vs CPU (attn_mask_variant={variant})")
+    # (label, attn_mask_variant, vae_impl, batch, shots); "mixed" with the
+    # threshold lowered to the tiny VAE's full 32x32 grid; "auto" at batch 1,
+    # 1 shot (3 encoded images: the fused encode on the card, "xla" on the CPU)
+    runs = [("kv_fusion", False, "xla", 2, 3), ("attn_mask", True, "xla", 2, 3),
+            ("vae_fused", False, "fused", 2, 3), ("vae_mixed", False, "mixed", 2, 3),
+            ("vae_auto_b1", False, "auto", 1, 1)]
+    threshold = vae.MIXED_MIN_PIXELS
+    for label, variant, vae_impl, b, n in runs:
+        vae.MIXED_MIN_PIXELS = 32 * 32 if vae_impl == "mixed" else threshold
+        try:
+            pipes = {dev: DiffewsPipeline(random_pipeline_bundle(*cfgs, seed=0), device=dev,
+                                          attn_mask_variant=variant, vae_impl=vae_impl)
+                     for dev in ("cpu", "cuda")}
+            q, sup, m = _episode(b, n, 32, seed=1)
+            sm = np.array([[True, True, False], [True, True, True]]) if n == 3 else None
+            res = {"cpu": pipes["cpu"].predict(q, sup, m, shot_mask=sm, r_threshold=0.25)}
+            _zero_counts()
+            res["cuda"] = pipes["cuda"].predict(q, sup, m, shot_mask=sm, r_threshold=0.25)
+            counts = _launch_counts()
+        finally:
+            vae.MIXED_MIN_PIXELS = threshold
+        what = f"tiny GPU vs CPU ({label})"
+        check(counts["flash_attention_fwd"] > 0, f"{what}: no flash launch: {counts}")
+        if vae_impl in ("xla", "mixed", "auto"):  # decode through group_norm_act
+            check(counts["gn_stats"] > 0 and counts["gn_apply"] > 0,
+                  f"{what}: no GroupNorm launch: {counts}")
+        if vae_impl in ("fused", "mixed", "auto"):
+            check(counts["fused_gn_silu_conv3x3"] > 0, f"{what}: no fused launch: {counts}")
+        mx, frac = _uint8_close(res["cuda"].seg_colored, res["cpu"].seg_colored, what)
         flips = float((res["cuda"].mask != res["cpu"].mask).mean())
-        check(flips < 0.01, f"tiny GPU vs CPU: {flips:.4f} of mask pixels flip")
-        key = "attn_mask" if variant else "kv_fusion"
-        out[key] = {"max_uint8_diff": mx, "frac_differ": frac, "mask_flips": flips,
-                    "kernel_launches": launched}
+        check(flips < 0.01, f"{what}: {flips:.4f} of mask pixels flip")
+        out[label] = {"vae_impl": vae_impl, "max_uint8_diff": mx, "frac_differ": frac,
+                      "mask_flips": flips, "kernel_launches": counts}
     RESULTS["tiny"] = out
     emit({"phase": "tiny", "dtype": "float32", "tf32": False, **out})
 
@@ -446,6 +718,7 @@ def phase_tiny_train():
     from diffews_tpu_torch.configs import UNetConfig, VAEConfig
     from diffews_tpu_torch.models.unet import UNet2DConditionModel
     from diffews_tpu_torch.models.vae import AutoencoderKL
+    from diffews_tpu_torch.ops import groupnorm
     from diffews_tpu_torch.ops.flash_attention import flash_attention_bwd
     from diffews_tpu_torch.training.state import TrainerConfig, init_state, make_train_step
     from diffews_tpu_torch.utils.init import build_module
@@ -464,11 +737,16 @@ def phase_tiny_train():
             size=(2, gas, _n_images(b, n, variant), px // 2, px // 2, 4)).astype(np.float32)
         runs = {}
         for dev in ("cpu", "cuda"):
-            unet = build_module(UNet2DConditionModel, ucfg, seed=0).to(dev)
-            vae = build_module(AutoencoderKL, vcfg, seed=1).to(dev).requires_grad_(False)
+            # NHWC activations stay contiguous on the card (the GroupNorm
+            # kernels take nothing else), as the pipeline and trainer set it
+            fmt = torch.channels_last if dev == "cuda" else torch.contiguous_format
+            unet = build_module(UNet2DConditionModel, ucfg, seed=0).to(dev, memory_format=fmt)
+            vae = build_module(AutoencoderKL, vcfg, seed=1).to(
+                dev, memory_format=fmt).requires_grad_(False)
             state = init_state(cfg, dict(unet.named_parameters()), device=dev)
             step = make_train_step(cfg, unet)
             dq0, dkv0 = flash_attention_bwd.dq_launches, flash_attention_bwd.dkv_launches
+            gn0 = groupnorm.gn_stats_kernel.launches
             metrics, mu_hist = [], []
             for i in range(2):
                 batch = _train_batch(gas, b, n, px, seed=10 + i, padded=1, device=dev)
@@ -477,10 +755,13 @@ def phase_tiny_train():
                 metrics.append({k: float(v) for k, v in m.items()})
                 mu_hist.append({k: v.detach().cpu().clone() for k, v in state.opt_state.mu.items()})
             runs[dev] = (metrics, state, mu_hist, flash_attention_bwd.dq_launches - dq0,
-                         flash_attention_bwd.dkv_launches - dkv0)
-        (m_cpu, s_cpu, mu_cpu, _, _), (m_gpu, s_gpu, _, dq_n, dkv_n) = runs["cpu"], runs["cuda"]
+                         flash_attention_bwd.dkv_launches - dkv0,
+                         groupnorm.gn_stats_kernel.launches - gn0)
+        (m_cpu, s_cpu, mu_cpu, *_), (m_gpu, s_gpu, _, dq_n, dkv_n, gn_n) = (runs["cpu"],
+                                                                          runs["cuda"])
         what = f"tiny train GPU vs CPU (attn_mask_variant={variant})"
         check(dq_n > 0 and dkv_n > 0, f"{what}: the backward kernels were not launched")
+        check(gn_n > 0, f"{what}: the GroupNorm kernels were not launched")
         for i, (a, c) in enumerate(zip(m_gpu, m_cpu)):
             check(abs(a["loss"] - c["loss"]) <= 1e-5 * abs(c["loss"]),
                   f"{what}: step {i} loss {a['loss']} vs {c['loss']}")
@@ -494,7 +775,7 @@ def phase_tiny_train():
             "loss_gpu": [m["loss"] for m in m_gpu], "loss_cpu": [m["loss"] for m in m_cpu],
             "grad_norm_gpu": [m["grad_norm"] for m in m_gpu],
             "grad_norm_cpu": [m["grad_norm"] for m in m_cpu],
-            "dq_launches": dq_n, "dkv_launches": dkv_n, **params}
+            "dq_launches": dq_n, "dkv_launches": dkv_n, "gn_stats_launches": gn_n, **params}
     RESULTS["tiny_train"] = out
     emit({"phase": "tiny_train", "dtype": "float32", "tf32": False, "gas": gas, **out})
 
@@ -505,6 +786,14 @@ def _kernel_class(name: str) -> str:
         return "flash_attention_fwd"
     if "flash_bwd" in n:
         return "flash_attention_bwd"
+    if "gn_stats_partial" in n:
+        return "gn_stats (B4a)"
+    if "gn_apply" in n:
+        return "gn_apply (B4b)"
+    if "conv_mma_kernel" in n or "conv_f32_kernel" in n:
+        return "fused_gn_silu_conv3x3 (B5)"
+    if "sum_partials" in n:
+        return "statistics partial sums (B4a, B5)"
     if "fprop" in n or "conv" in n or "cudnn" in n:
         return "conv (cuDNN)"
     if "gemm" in n or "cutlass" in n or "nvjet" in n or "cublas" in n:
@@ -547,84 +836,126 @@ def profile_episode(fn) -> dict:
             "top_kernels_ms": [[n[:80], round(v, 3)] for n, v in top]}
 
 
+# launches per 1-shot batch-4 predict by `vae_impl` ("auto" at batch 1):
+# 34 flash forward (32 UNet + 2 VAE mid blocks); GroupNorm+SiLU sites: 44
+# in the UNet's 22 resnets, 21 in the encoder (10 resnets + head) and 29 in
+# the decoder (14 + head) unless fused; fused convs: 2 per fused resnet + 1
+# per fused head.  "mixed" fuses the encoder's 512² and 256² resnets and the
+# decoder's 256² and 512² resnets and head; "auto" fuses the encode of 3
+# images, never the decode.
+EPISODE_LAUNCHES = {
+    "xla": {"flash_attention_fwd": 34, "gn_stats": 94, "gn_apply": 94,
+            "fused_gn_silu_conv3x3": 0},
+    "fused": {"flash_attention_fwd": 34, "gn_stats": 44, "gn_apply": 44,
+              "fused_gn_silu_conv3x3": 50},
+    "mixed": {"flash_attention_fwd": 34, "gn_stats": 73, "gn_apply": 73,
+              "fused_gn_silu_conv3x3": 21},
+    "auto_b1": {"flash_attention_fwd": 34, "gn_stats": 73, "gn_apply": 73,
+                "fused_gn_silu_conv3x3": 21},
+}
+VAE_F32_TOL = 2e-3  # fused vs xla VAE, f32, TF32 off: max|Δ| / max|xla|
+
+
+def _timed_episode(pipe, vae_impl, args, label, card):
+    """Warm up, then one predict with the launch counts zeroed before it and
+    read after it, three timed repeats and a profile.  Returns (result of
+    the counted predict, record)."""
+    import torch
+
+    pipe.vae_impl = vae_impl
+    warm = pipe.predict(*args, r_threshold=0.25)  # cuDNN plans, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.time()
+    out = pipe.predict(*args, r_threshold=0.25)
+    wall = time.time() - t0
+    counts = _launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(counts == EPISODE_LAUNCHES[label], f"{label} predict launched {counts}, "
+          f"expected {EPISODE_LAUNCHES[label]}")
+    check(np.array_equal(warm.seg_colored, out.seg_colored), f"{label}: repeat differs")
+    walls = []
+    for _ in range(3):
+        t0 = time.time()
+        pipe.predict(*args, r_threshold=0.25)
+        walls.append(time.time() - t0)
+    prof = profile_episode(lambda: pipe.predict(*args, r_threshold=0.25))
+    emit({"phase": f"profile_{label}_512px_bf16", **prof, "card": card})
+    rec = {"vae_impl": vae_impl, "kernel_launches": counts, "wall_s_first": wall,
+           "wall_s": walls, "wall_s_median": statistics.median(walls),
+           "peak_mem_gb": peak / 1e9, "profile": prof, "card": card}
+    return out, rec
+
+
+def _padded_invariant(pipe, vae_impl, q5, sup5, m5, sm):
+    """bf16 5-shot episode: the two padded shots' content changes no bit."""
+    pipe.vae_impl = vae_impl
+    pad = pipe.predict(q5, sup5, m5, shot_mask=sm, r_threshold=0.25)
+    sup_o, m_o = sup5.copy(), m5.copy()
+    sup_o[:, 3:], m_o[:, 3:] = 255 - sup5[:, 3:], 1 - m5[:, 3:]
+    other = pipe.predict(q5, sup_o, m_o, shot_mask=sm, r_threshold=0.25)
+    check(np.array_equal(pad.seg_colored, other.seg_colored),
+          f"padded shots' content changed the bf16 prediction (vae_impl={vae_impl})")
+    return pad
+
+
 def phase_full(card):
     import torch
-    from diffews_tpu_torch.checkpoint import random_pipeline_bundle
-    from diffews_tpu_torch.configs import (CLIPTextConfig, SchedulerConfig,
-                                           UNetConfig, VAEConfig)
-    from diffews_tpu_torch.ops.flash_attention import flash_attention
     from diffews_tpu_torch.pipeline import DiffewsPipeline
 
     torch.backends.cuda.matmul.allow_tf32 = True
     torch.backends.cudnn.allow_tf32 = True
     t0 = time.time()
-    bundle = random_pipeline_bundle(UNetConfig.sd21(), VAEConfig.sd(),
-                                    CLIPTextConfig.sd21(), SchedulerConfig.diffews(),
-                                    seed=0, device="cuda")
-    pipe = DiffewsPipeline(bundle, device="cuda", compute_dtype=torch.bfloat16)
-    del bundle
+    pipe = DiffewsPipeline(_full_bundle(), device="cuda", compute_dtype=torch.bfloat16)
     torch.cuda.synchronize()
-    setup_s = time.time() - t0
-    res = {"setup_s": setup_s}
+    res = {"setup_s": time.time() - t0}
 
-    # (a) 1-shot, batch 4
+    # (a) 1-shot, batch 4, under each vae_impl; batch 1 under "auto"
     q, sup, m = _episode(4, 1, 512, seed=2)
-    warm = pipe.predict(q, sup, m, r_threshold=0.25)  # cuDNN plans, allocator
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    flash_attention.launches = 0
-    t0 = time.time()
-    out = pipe.predict(q, sup, m, r_threshold=0.25)
-    wall = time.time() - t0
-    launches = flash_attention.launches
-    peak = torch.cuda.max_memory_allocated()
-    check(launches == 34, f"1-shot predict launched the kernel {launches} times, not 34")
-    walls = []
-    for _ in range(3):
-        t0 = time.time()
-        pipe.predict(q, sup, m, r_threshold=0.25)
-        walls.append(time.time() - t0)
+    out, res["one_shot_b4"] = _timed_episode(pipe, "xla", (q, sup, m), "xla", card)
     check(out.seg_colored.shape == (4, 512, 512, 3) and out.seg_colored.dtype == np.uint8,
           f"seg {out.seg_colored.shape} {out.seg_colored.dtype}")
     check(out.mask.shape == (4, 512, 512) and out.mask.dtype == bool, "mask shape/dtype")
-    check(np.array_equal(warm.seg_colored, out.seg_colored), "repeat episode differs")
     with torch.inference_mode():
         x0 = pipe._x0_latent(*(pipe._put(x) for x in (q, sup, m)),
                              pipe.empty_text_embed, None, 1)
     check(tuple(x0.shape) == (4, 64, 64, 4) and bool(torch.isfinite(x0.float()).all()),
           f"x0 {tuple(x0.shape)} not finite")
-    res["profile_1shot_b4"] = profile_episode(lambda: pipe.predict(q, sup, m, r_threshold=0.25))
-    emit({"phase": "profile_1shot_b4_512px_bf16", **res["profile_1shot_b4"], "card": card})
-
     # yardstick for bf16 rounding that depends on the batch shape: the first
     # query of the batch-4 episode run alone
     one = pipe.predict(q[:1], sup[:1], m[:1], r_threshold=0.25)
     d1 = np.abs(one.seg_colored[0].astype(np.int32) - out.seg_colored[0].astype(np.int32))
-    res["one_shot_b4"] = {
-        "kernel_launches": launches, "wall_s_first": wall,
-        "wall_s_median": statistics.median(walls), "peak_mem_gb": peak / 1e9,
-        "mask_fraction": float(out.mask.mean()),
-        "seg_mean": float(out.seg_colored.mean()),
+    res["one_shot_b4"].update({
+        "mask_fraction": float(out.mask.mean()), "seg_mean": float(out.seg_colored.mean()),
         "b1_vs_b4_row0_max_uint8_diff": int(d1.max()),
-        "b1_vs_b4_row0_frac_differ": float((d1 != 0).mean()), "card": card}
-    emit({"phase": "full_1shot_b4_512px_bf16", **res["one_shot_b4"]})
+        "b1_vs_b4_row0_frac_differ": float((d1 != 0).mean())})
+    emit({"phase": "full_1shot_b4_512px_bf16", **{k: v for k, v in res["one_shot_b4"].items()
+                                                   if k != "profile"}})
+    for label in ("fused", "mixed"):
+        got, rec = _timed_episode(pipe, label, (q, sup, m), label, card)
+        dv = np.abs(got.seg_colored.astype(np.int32) - out.seg_colored.astype(np.int32))
+        rec.update({"bf16_max_uint8_diff_vs_xla": int(dv.max()),
+                    "bf16_frac_differ_vs_xla": float((dv != 0).mean())})
+        res[f"one_shot_b4_{label}"] = rec
+        emit({"phase": f"full_1shot_b4_512px_bf16_{label}",
+              **{k: v for k, v in rec.items() if k != "profile"}})
+    _, rec = _timed_episode(pipe, "auto", (q[:1], sup[:1], m[:1]), "auto_b1", card)
+    res["one_shot_b1_auto"] = rec
+    emit({"phase": "full_1shot_b1_512px_bf16_auto",
+          **{k: v for k, v in rec.items() if k != "profile"}})
 
-    # (b) 5-shot, batch 1, shots 4 and 5 padded by shot_mask
+    # (b) 5-shot, batch 1, shots 4 and 5 padded by shot_mask: under "xla"
+    # and "fused" their content changes no bit of the bf16 prediction
     q5, sup5, m5 = _episode(1, 5, 512, seed=3)
     sm = np.array([[True, True, True, False, False]])
-    pad = pipe.predict(q5, sup5, m5, shot_mask=sm, r_threshold=0.25)
+    _padded_invariant(pipe, "fused", q5, sup5, m5, sm)
+    pad = _padded_invariant(pipe, "xla", q5, sup5, m5, sm)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     pipe.predict(q5, sup5, m5, shot_mask=sm, r_threshold=0.25)
     wall5 = time.time() - t0
     peak5 = torch.cuda.max_memory_allocated()
-    # same shapes, other content in the padded shots: bit-identical, so a
-    # padded shot carries no weight
-    sup_o, m_o = sup5.copy(), m5.copy()
-    sup_o[:, 3:], m_o[:, 3:] = 255 - sup5[:, 3:], 1 - m5[:, 3:]
-    other = pipe.predict(q5, sup_o, m_o, shot_mask=sm, r_threshold=0.25)
-    check(np.array_equal(pad.seg_colored, other.seg_colored),
-          "padded shots' content changed the bf16 prediction")
     # against the 3-shot episode of the same data: bf16 (reported; its batch
     # shapes differ, so rounding differs) and f32 with TF32 off (held)
     three = pipe.predict(q5, sup5[:, :3], m5[:, :3], r_threshold=0.25)
@@ -633,11 +964,7 @@ def phase_full(card):
     torch.cuda.empty_cache()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    bundle = random_pipeline_bundle(UNetConfig.sd21(), VAEConfig.sd(),
-                                    CLIPTextConfig.sd21(), SchedulerConfig.diffews(),
-                                    seed=0, device="cuda")
-    pipe32 = DiffewsPipeline(bundle, device="cuda", compute_dtype=torch.float32)
-    del bundle
+    pipe32 = DiffewsPipeline(_full_bundle(), device="cuda", compute_dtype=torch.float32)
     pad32 = pipe32.predict(q5, sup5, m5, shot_mask=sm, r_threshold=0.25)
     three32 = pipe32.predict(q5, sup5[:, :3], m5[:, :3], r_threshold=0.25)
     mx, frac = _uint8_close(pad32.seg_colored, three32.seg_colored,
@@ -645,15 +972,42 @@ def phase_full(card):
     flips = float((pad32.mask != three32.mask).mean())
     check(flips < 0.01, f"f32 padded vs 3-shot: {flips:.4f} of mask pixels flip")
     res["five_shot_padded_b1"] = {
-        "bf16_padded_content_invariant": True,
+        "bf16_padded_content_invariant": {"xla": True, "fused": True},
         "bf16_max_uint8_diff_vs_3shot": int(d3.max()),
         "bf16_frac_differ_vs_3shot": float((d3 != 0).mean()),
         "f32_max_uint8_diff_vs_3shot": mx, "f32_frac_differ_vs_3shot": frac,
         "f32_mask_flips_vs_3shot": flips, "bf16_wall_s": wall5,
         "bf16_peak_mem_gb": peak5 / 1e9, "card": card}
     emit({"phase": "full_5shot_2padded_b1_512px", **res["five_shot_padded_b1"]})
+
+    # (c) f32, TF32 off: the fused VAE against the xla VAE at full width, on
+    # the three images of a 1-shot episode (encode) and their latents (decode)
+    with torch.inference_mode():
+        imgs = torch.cat([pipe32._norm_img(pipe32._put(x)) for x in (q[:1], sup[0, :1])]
+                         + [pipe32._norm_mask(pipe32._put(m[:1]))[0]], dim=0)
+        enc = {k: pipe32.vae.encode_moments(imgs, resnet_impl=k) for k in ("xla", "fused")}
+        z = enc["xla"][..., :4] * pipe32.vae_cfg.scaling_factor
+        dec = {k: pipe32.vae.decode(z, resnet_impl=k) for k in ("xla", "fused")}
+    vae_cmp = {}
+    for name, pair in (("encode_moments", enc), ("decode", dec)):
+        ref = pair["xla"]
+        err = (pair["fused"] - ref).abs()
+        top = ref.abs().max().item()
+        vae_cmp[name] = {"shape": list(ref.shape), "max_abs": err.max().item(),
+                         "mean_abs": err.mean().item(), "max_abs_xla": top,
+                         "max_rel": err.max().item() / top}
+        check(bool(torch.isfinite(pair["fused"]).all())
+              and err.max().item() <= VAE_F32_TOL * top,
+              f"f32 fused vs xla VAE {name}: {vae_cmp[name]} (tolerance {VAE_F32_TOL})")
+    res["vae_f32_fused_vs_xla"] = {"tolerance_rel_to_max": VAE_F32_TOL, **vae_cmp}
+    emit({"phase": "full_vae_f32_fused_vs_xla", **res["vae_f32_fused_vs_xla"]})
+    del pipe32, enc, dec
+    torch.cuda.empty_cache()
     RESULTS["full"] = res
-    return launches
+    return {k: res[r]["kernel_launches"] for k, r in (
+        ("episode_1shot_b4", "one_shot_b4"), ("episode_1shot_b4_fused", "one_shot_b4_fused"),
+        ("episode_1shot_b4_mixed", "one_shot_b4_mixed"),
+        ("episode_1shot_b1_auto", "one_shot_b1_auto"))}
 
 
 def _grads_compare(ga, gb):
@@ -680,7 +1034,7 @@ def phase_train(card):
     from diffews_tpu_torch.models.clip_text import CLIPTextModel
     from diffews_tpu_torch.models.unet import UNet2DConditionModel
     from diffews_tpu_torch.models.vae import AutoencoderKL
-    from diffews_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bwd
+    from diffews_tpu_torch.ops.flash_attention import flash_attention_bwd
     from diffews_tpu_torch.training import lr as lr_lib
     from diffews_tpu_torch.training.state import (TrainerConfig, TrainState, bind_params,
                                                   init_state, make_episode_loss,
@@ -720,17 +1074,21 @@ def phase_train(card):
     b1 = _train_batch(1, 1, 1, 512, seed=5, device="cuda")
     state, m = step(state, b1, gen, vae, text_embed)  # cuDNN plans, allocator
     torch.cuda.synchronize()
-    flash_attention.launches = 0
-    flash_attention_bwd.dq_launches = flash_attention_bwd.dkv_launches = 0
+    _zero_counts()
     state, m = step(state, b1, gen, vae, text_embed)
     torch.cuda.synchronize()
-    launches = {"flash_attention_fwd": flash_attention.launches,
+    counts = _launch_counts()
+    launches = {"flash_attention_fwd": counts["flash_attention_fwd"],
                 "flash_attention_bwd_dq": flash_attention_bwd.dq_launches,
-                "flash_attention_bwd_dkv": flash_attention_bwd.dkv_launches}
+                "flash_attention_bwd_dkv": flash_attention_bwd.dkv_launches,
+                "gn_stats": counts["gn_stats"], "gn_apply": counts["gn_apply"],
+                "fused_gn_silu_conv3x3": counts["fused_gn_silu_conv3x3"]}
     check(launches == {"flash_attention_fwd": 65, "flash_attention_bwd_dq": 32,
-                       "flash_attention_bwd_dkv": 32},
-          f"a 1-shot micro-step launched {launches}; expected 65 forward (32 + 32 "
-          "recomputed under remat + 1 VAE encode), 32 dq, 32 dkv")
+                       "flash_attention_bwd_dkv": 32, "gn_stats": 109, "gn_apply": 109,
+                       "fused_gn_silu_conv3x3": 0},
+          f"a 1-shot micro-step launched {launches}; expected 65 flash forward (32 + 32 "
+          "recomputed under remat + 1 VAE encode), 32 dq, 32 dkv, and 109 GroupNorm "
+          "stats and apply (44 + 44 recomputed + 21 in the VAE encode)")
     before = snap()
     torch.cuda.reset_peak_memory_stats()
     synced, losses = [], []
@@ -918,18 +1276,25 @@ def phase_train(card):
     return launches
 
 
-def kernel_record(rows, bwd_rows, episode_launches, train_launches):
-    """One entry per kernel; `launches` is the count of this slice's path
-    (one training micro-step), `launches_by_path` adds the episode's."""
+def kernel_record(rows, bwd_rows, norm_rows, fused_rows, episode_launches, train_launches):
+    """One entry per kernel.  `launches` is the count on the path of the
+    slice that ported it (the training micro-step for the flash kernels,
+    the default episode for the GroupNorm kernels, the `vae_impl="fused"`
+    episode for the fused conv); `launches_by_path` gives every path's."""
     main = [r for r in rows if r["shape"] == MAIN_SHAPE and r["dtype"] == "bfloat16"][0]
     bmain = [r for r in bwd_rows
              if r["shape"] == BWD_MAIN_SHAPE and r["dtype"] == "bfloat16"][0]
+    nmain = [r for r in norm_rows
+             if tuple(r["shape"]) == NORM_MAIN_SHAPE and r["dtype"] == "bfloat16"][0]
+    fmain = [r for r in fused_rows if tuple(r["shape"]) + (r["residual"],) == FUSED_MAIN_SHAPE
+             and r["dtype"] == "bfloat16"][0]
+    paths = dict(episode_launches, train_micro_step_1shot_b1=train_launches)
+    by_path = lambda key: {p: c[key] for p, c in paths.items()}
     src = "diffews_tpu_torch/ops/csrc/"
     fwd = {"name": "flash_attention_fwd", "route": "cuda", "source": src + "flash_attention_fwd.cu",
            "replaces": "diffews_tpu/ops/flash_attention.py:73",
            "launches": train_launches["flash_attention_fwd"],
-           "launches_by_path": {"episode_1shot_b4": episode_launches,
-                                "train_micro_step_1shot_b1": train_launches["flash_attention_fwd"]},
+           "launches_by_path": by_path("flash_attention_fwd"),
            "max_abs_err": max(r["max_abs_err"] for r in rows), "ms": main["ms"],
            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
            "bound_by": main["bound_by"], "library_ms": main["library_ms"]}
@@ -940,16 +1305,52 @@ def kernel_record(rows, bwd_rows, episode_launches, train_launches):
             "name": name, "route": "cuda", "source": src + "flash_attention_bwd.cu",
             "replaces": f"diffews_tpu/ops/flash_attention.py:{line}",
             "launches": train_launches[name],
+            "launches_by_path": {"train_micro_step_1shot_b1": train_launches[name]},
             "max_abs_err": max(r["max_abs_err"][e] for r in bwd_rows for e in errs),
             "ms": bmain[f"{kind}_ms"], "plain_ms": bmain["plain_ms"],
             "bound_ms": bmain[f"{kind}_bound_ms"], "bound_by": bmain[f"{kind}_bound_by"],
             "library_ms": bmain["library_ms"],
             "shape": f"B1 H5 4096x8192 d64 bf16; plain_ms and library_ms are the whole "
                      "backward (dq, dk, dv)"})
+    gn_shape = "x".join(map(str, NORM_MAIN_SHAPE))
+    out.append({
+        "name": "gn_stats", "route": "cuda", "source": src + "groupnorm.cu",
+        "replaces": "diffews_tpu/ops/groupnorm.py:53",
+        "launches": episode_launches["episode_1shot_b4"]["gn_stats"],
+        "launches_by_path": by_path("gn_stats"),
+        "max_abs_err": max(r["stats_max_abs_err"] for r in norm_rows),
+        "ms": nmain["stats_ms"], "plain_ms": nmain["stats_plain_ms"],
+        "bound_ms": nmain["stats_bound_ms"], "bound_by": "bytes",
+        "library_ms": nmain["library_ms"],
+        "shape": f"{gn_shape} (B, H, W, C) bf16, 32 groups; plain_ms is the plain Σx, Σx², "
+                 "library_ms F.group_norm + F.silu (the whole op)"})
+    out.append({
+        "name": "gn_apply", "route": "cuda", "source": src + "groupnorm.cu",
+        "replaces": "diffews_tpu/ops/groupnorm.py:73",
+        "launches": episode_launches["episode_1shot_b4"]["gn_apply"],
+        "launches_by_path": by_path("gn_apply"),
+        "max_abs_err": max(r["max_abs_err"] for r in norm_rows),
+        "ms": nmain["apply_ms"], "plain_ms": nmain["plain_ms"],
+        "bound_ms": nmain["apply_bound_ms"], "bound_by": "bytes",
+        "library_ms": nmain["library_ms"],
+        "whole_op_ms": nmain["ms"],
+        "shape": f"{gn_shape} bf16 with SiLU; plain_ms and library_ms (F.group_norm + "
+                 "F.silu) are the whole GroupNorm+SiLU, as is whole_op_ms (stats, fold, "
+                 "apply)"})
+    out.append({
+        "name": "fused_gn_silu_conv3x3", "route": "cuda", "source": src + "fused_resnet.cu",
+        "replaces": "diffews_tpu/ops/fused_resnet.py:88",
+        "launches": episode_launches["episode_1shot_b4_fused"]["fused_gn_silu_conv3x3"],
+        "launches_by_path": by_path("fused_gn_silu_conv3x3"),
+        "max_abs_err": max(r["max_abs_err"] for r in fused_rows),
+        "ms": fmain["ms"], "plain_ms": fmain["plain_ms"], "bound_ms": fmain["bound_ms"],
+        "bound_by": fmain["bound_by"], "library_ms": fmain["library_ms"],
+        "shape": "B12 512x512 128->128 with residual, bf16; library_ms is cuDNN's conv "
+                 "alone (F.conv2d with bias)"})
     return {"kernels": out}
 
 
-PHASES = "device,build,kernel,bwd,tiny,tiny_train,full,train"
+PHASES = "device,build,kernel,bwd,norm,fused,tiny,tiny_train,full,train"
 
 
 def main():
@@ -970,6 +1371,11 @@ def main():
         phase_build()
     rows = phase_kernel() if "kernel" in phases else []
     bwd_rows = phase_bwd() if "bwd" in phases else []
+    norm_rows, fused_rows = [], []
+    if "norm" in phases or "fused" in phases:
+        gn_shapes, fr_shapes = episode_shapes()
+        norm_rows = phase_norm(gn_shapes) if "norm" in phases else []
+        fused_rows = phase_fused(fr_shapes) if "fused" in phases else []
     if "tiny" in phases:
         phase_tiny()
     if "tiny_train" in phases:
@@ -982,7 +1388,8 @@ def main():
         json.dump(RESULTS, f, indent=1)
     if phases != set(PHASES.split(",")):
         fail(f"phases {sorted(phases)} ran; the kernel record needs all of {PHASES}")
-    emit(kernel_record(rows, bwd_rows, episode_launches, train_launches))
+    emit(kernel_record(rows, bwd_rows, norm_rows, fused_rows, episode_launches,
+                       train_launches))
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
 

@@ -26,6 +26,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from diffews_tpu_torch.ops.groupnorm import group_norm_act
+
 
 # ---------------------------------------------------------------------------
 # functional ops
@@ -149,6 +151,12 @@ class GroupNorm(nn.Module):
         return group_norm(x, self.weight, self.bias, groups=self.groups,
                           eps=self.eps)
 
+    def norm_silu(self, x: torch.Tensor) -> torch.Tensor:
+        """SiLU(GroupNorm(x)) through `ops.groupnorm.group_norm_act`: the
+        GroupNorm kernels on the card, the plain formula on the CPU."""
+        return group_norm_act(x, self.weight, self.bias, groups=self.groups, eps=self.eps,
+                              act="silu")
+
 
 class LayerNorm(nn.Module):
     def __init__(self, channels: int, eps: float = 1e-5):
@@ -174,9 +182,9 @@ class TimestepEmbedding(nn.Module):
 
 
 class ResnetBlock2D(nn.Module):
-    """diffusers ResnetBlock2D (default time-scale-shift, output factor 1);
-    the GroupNorm+SiLU pairs are the plain formula (`group_norm_act`'s
-    "xla" path)."""
+    """diffusers ResnetBlock2D (default time-scale-shift, output factor 1).
+    Both GroupNorm+SiLU pairs go through `GroupNorm.norm_silu`, i.e.
+    `group_norm_act` (JAX `layers.py:184,189`)."""
 
     def __init__(self, cin: int, cout: int, temb_dim: Optional[int], *,
                  groups: int, eps: float):
@@ -192,10 +200,10 @@ class ResnetBlock2D(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 temb: Optional[torch.Tensor] = None) -> torch.Tensor:
-        h = self.conv1(silu(self.norm1(x)))
+        h = self.conv1(self.norm1.norm_silu(x))
         if temb is not None and hasattr(self, "time_emb_proj"):
             h = h + self.time_emb_proj(silu(temb))[:, None, None, :]
-        h = self.conv2(silu(self.norm2(h)))
+        h = self.conv2(self.norm2.norm_silu(h))
         if hasattr(self, "conv_shortcut"):
             x = self.conv_shortcut(x)
         return x + h

@@ -34,6 +34,8 @@ from diffews_tpu_torch.models import clip_text
 from diffews_tpu_torch.ops.resize import nearest_resize
 from diffews_tpu_torch.scheduler import DDIMScheduler
 
+VAE_IMPLS = ("xla", "fused", "mixed", "auto")
+
 
 @dataclasses.dataclass
 class SegOutput:
@@ -80,7 +82,14 @@ class DiffewsPipeline:
         unchanged, images are independent through the VAE.
       attn_mask_variant: the experimental ATTN-MASK conditioning (support
         masks as per-level attention key biases; `unet.forward` ref_mask).
-      vae_impl, unet_int8, mesh, shot_mesh: only the defaults are ported.
+      vae_impl: the VAE's resnets ("xla" | "fused" | "mixed" | "auto";
+        `models/vae.py`).  "xla" (default) keeps the outputs independent
+        of the batch size; "fused"/"mixed" force the fused resnet chain
+        for encode and decode (it rounds its GroupNorm differently, by
+        design); "auto" encodes through the fused chain when the encode
+        batch has <= 4 images on a CUDA device, else "xla", and decodes
+        through "xla".  "int8" is not ported (ROADMAP A12).
+      unet_int8, mesh, shot_mesh: only the defaults are ported.
     """
 
     def __init__(self, bundle: ckpt_lib.PipelineBundle, *, device=None,
@@ -88,10 +97,10 @@ class DiffewsPipeline:
                  test_timestep: int = 1, mesh=None, shot_mesh=None,
                  encode_chunks: int = 0, vae_impl: str = "xla",
                  unet_int8: bool = False, attn_mask_variant: bool = False):
-        if vae_impl != "xla":
-            raise NotImplementedError(
-                f"vae_impl={vae_impl!r}: the fused resnet and groupnorm kernels "
-                "are not ported yet (ROADMAP B4, B5)")
+        if vae_impl == "int8":
+            raise NotImplementedError("vae_impl='int8': W8A8 is not ported yet (ROADMAP A12)")
+        if vae_impl not in VAE_IMPLS:
+            raise ValueError(f"unknown vae_impl {vae_impl!r} (expected one of {VAE_IMPLS})")
         if unet_int8:
             raise NotImplementedError("unet_int8: W8A8 is not ported yet (ROADMAP A12)")
         if mesh is not None or shot_mesh is not None:
@@ -108,6 +117,7 @@ class DiffewsPipeline:
         self.test_timestep = test_timestep
         self.encode_chunks = int(encode_chunks)
         self.attn_mask_variant = bool(attn_mask_variant)
+        self.vae_impl = vae_impl
 
         fmt = (torch.channels_last if self.device.type == "cuda"
                else torch.contiguous_format)
@@ -153,10 +163,16 @@ class DiffewsPipeline:
         return self._norm_img(masks)
 
     def _encode_images(self, all_imgs: torch.Tensor) -> torch.Tensor:
-        """Batched VAE mean-latent encode, optionally in chunks."""
+        """Batched VAE mean-latent encode, optionally in chunks.  "auto"
+        decides on the whole batch, before chunking (JAX
+        `pipeline.py:354-367`)."""
         nimg = all_imgs.shape[0]
+        resnet_impl = self.vae_impl
+        if resnet_impl == "auto":
+            resnet_impl = "fused" if nimg <= 4 and self.device.type == "cuda" else "xla"
         chunks = self.encode_chunks or (1 if nimg <= 48 else -(-nimg // 24))
-        enc = lambda x: self.vae.encode_mean_latent(x, attn_impl=self.attn_impl)
+        enc = lambda x: self.vae.encode_mean_latent(x, attn_impl=self.attn_impl,
+                                                    resnet_impl=resnet_impl)
         if chunks <= 1:
             return enc(all_imgs)
         per = -(-nimg // chunks)
@@ -197,10 +213,16 @@ class DiffewsPipeline:
             latent, x0 = self.scheduler.step(v, int(t), latent)
         return x0
 
+    def _decode_resnet_impl(self) -> str:
+        """The decoder's resnets: forced "fused"/"mixed" apply to the whole
+        VAE; "auto"'s choice is encode-only (JAX `pipeline.py:474-481`)."""
+        return self.vae_impl if self.vae_impl in ("fused", "mixed") else "xla"
+
     def _decode_seg(self, x0: torch.Tensor) -> torch.Tensor:
         """VAE decode + clip(-1, 1) -> [0, 255] -> uint8 (truncating), the
         reference's PIL round-trip (`main_oss.py:128-137`)."""
-        img = self.vae.decode(x0, attn_impl=self.attn_impl).float().clamp(-1.0, 1.0)
+        img = self.vae.decode(x0, attn_impl=self.attn_impl,
+                              resnet_impl=self._decode_resnet_impl()).float().clamp(-1.0, 1.0)
         img = (img * 0.5 + 0.5) * 255.0
         return img.clamp(0.0, 255.0).to(torch.uint8)
 

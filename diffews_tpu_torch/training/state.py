@@ -251,7 +251,9 @@ def make_train_step(cfg: TrainerConfig, unet: nn.Module):
       shot_mask:(G, B, N) bool
     `rng`: a `torch.Generator` for the posterior samples, or their
     standard-normal draws, (G, images, h, w, latent_channels).  `vae`: the
-    frozen VAE in the compute dtype; `text_embed`: (1, 77, D).
+    frozen VAE in the compute dtype, channels-last on the card (its
+    GroupNorm kernels take contiguous NHWC activations and raise on
+    others); `text_embed`: (1, 77, D).
 
     Metrics (device tensors): loss, the pre-clip grad_norm, and
     apply_if_finite's notfinite_count and total_notfinite."""

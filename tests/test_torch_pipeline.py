@@ -3,6 +3,8 @@ against `diffews_tpu.pipeline` on the same weights and inputs (CPU, f32).
 
 uint8 seg within 1 count on < 1% of pixels, the x0 latent to 1e-4, the
 same thresholded masks; `device_mask_from_seg` equal to the host formula.
+Every `vae_impl` the port takes ("xla", "fused", "mixed", "auto") is held
+against the JAX pipeline with the same flag.
 """
 
 import jax
@@ -16,6 +18,7 @@ from diffews_tpu import pipeline as JP
 from diffews_tpu.configs import CLIPTextConfig, SchedulerConfig, UNetConfig, VAEConfig
 from diffews_tpu.models import unet as JU
 from diffews_tpu.models import vae as JV
+from diffews_tpu_torch.models import vae as TV
 from diffews_tpu_torch import checkpoint as TC
 from diffews_tpu_torch import configs as TCF
 from diffews_tpu_torch import pipeline as TP
@@ -39,8 +42,13 @@ def _bundles():
 
 
 @pytest.fixture(scope="module")
-def pipes():
-    jb, port = _bundles()
+def bundles():
+    return _bundles()
+
+
+@pytest.fixture(scope="module")
+def pipes(bundles):
+    jb, port = bundles
     return {"jax": JP.DiffewsPipeline(jb), "torch": TP.DiffewsPipeline(port(), device="cpu"),
             "jax_am": JP.DiffewsPipeline(jb, attn_mask_variant=True),
             "torch_am": TP.DiffewsPipeline(port(), device="cpu", attn_mask_variant=True)}
@@ -141,10 +149,37 @@ def test_mask_on_device_path(pipes):
     np.testing.assert_array_equal(dev.mask, host.mask)
 
 
-@pytest.mark.parametrize("kw", [{"vae_impl": "fused"}, {"unet_int8": True},
+@pytest.mark.parametrize("kw", [{"vae_impl": "int8"}, {"unet_int8": True},
                                 {"mesh": object()}, {"shot_mesh": object()}])
 def test_unported_options_raise(kw):
     b = TC.random_pipeline_bundle(TCF.UNetConfig.tiny(), TCF.VAEConfig.tiny(), None,
                                   TCF.SchedulerConfig.diffews())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TP.DiffewsPipeline(b, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("vae_impl", ["fused", "mixed", "auto"])
+def test_vae_impl_episode_matches_jax(bundles, vae_impl, monkeypatch):
+    """The episode under each fused VAE option against the JAX pipeline
+    with the same option.  "mixed" lowers `MIXED_MIN_PIXELS` to 32·32 in
+    both packages so that its fused blocks run at this size; "auto" picks
+    "xla" on the CPU in both (the fused encode is for the accelerator)."""
+    if vae_impl == "mixed":
+        monkeypatch.setattr(JV, "MIXED_MIN_PIXELS", 32 * 32)
+        monkeypatch.setattr(TV, "MIXED_MIN_PIXELS", 32 * 32)
+    jb, port = bundles
+    jp = JP.DiffewsPipeline(jb, vae_impl=vae_impl)
+    tp = TP.DiffewsPipeline(port(), device="cpu", vae_impl=vae_impl)
+    q, sup, m = _episode(1, 1, seed=10)
+    want = jp.predict(q, sup, m, r_threshold=0.25)
+    got = tp.predict(q, sup, m, r_threshold=0.25)
+    _uint8_close(got.seg_colored, want.seg_colored)
+    assert (got.mask != want.mask).mean() < 0.01
+    assert tp._decode_resnet_impl() == jp._decode_resnet_impl()
+
+
+def test_unknown_vae_impl_raises():
+    b = TC.random_pipeline_bundle(TCF.UNetConfig.tiny(), TCF.VAEConfig.tiny(), None,
+                                  TCF.SchedulerConfig.diffews())
+    with pytest.raises(ValueError, match="vae_impl"):
+        TP.DiffewsPipeline(b, device="cpu", vae_impl="cudnn")
