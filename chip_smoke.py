@@ -27,12 +27,23 @@ Phases, each of which fails the run (non-zero exit) on any error:
      B = 12, decode B = 4), f32 (TF32 off) and bf16, statistics against a
      fresh sum of its output, bit-identical repeats, with kernel / plain /
      cuDNN `F.conv2d` times and the bounds;
-  7. tiny: tiny-config f32 episodes on the card (kernels) against the same
+  7. downsample: the 3x3 stride-2 downsample kernel through its entry point
+     `downsample_conv2x` on the inputs and weights of the VAE encoder's
+     three Downsample2D, recorded from the encoder of a 512px episode at
+     B = 12 (1-shot batch 4) and B = 3 (batch 1): the three B = 12 calls
+     counted and held against the encoder's own outputs, then kernel
+     against plain version in f32 (TF32 off) and bf16, each image alone
+     against its batch row, bit-identical repeats, with kernel / plain /
+     cuDNN (`F.pad` + `F.conv2d`) times and the bounds;
+  8. tiny: tiny-config f32 episodes on the card (kernels) against the same
      episodes on the CPU (plain versions), under `vae_impl` "xla",
-     "fused", "mixed" (threshold lowered) and "auto";
-  8. tiny_train: two tiny f32 training steps at gas 2 on the card against
+     "fused", "mixed" (threshold lowered) and "auto"; and cached-support
+     serving (`precompute_supports` + `predict_cached`) on the card against
+     the CPU and against `predict`, both conditioning variants, padded
+     shots, a batch-1 cache under a batch-3 query;
+  9. tiny_train: two tiny f32 training steps at gas 2 on the card against
      the same steps on the CPU, both conditioning variants;
-  9. full: random-weight SD-2.1 UNet (8-ch `conv_in_ref`), SD VAE and
+ 10. full: random-weight SD-2.1 UNet (8-ch `conv_in_ref`), SD VAE and
      OpenCLIP ViT-H text tower at their published widths, bf16, 512px:
      the 1-shot batch-4 episode under `vae_impl` "xla" (34 flash, 94 + 94
      GroupNorm launches per `predict`), "fused" (44 + 44 GroupNorm, 50
@@ -40,7 +51,15 @@ Phases, each of which fails the run (non-zero exit) on any error:
      profiled; a 5-shot episode with two padded shots against the 3-shot
      episode, under "xla" and "fused"; the f32 (TF32 off) fused-vs-xla VAE
      encode and decode;
- 10. train: the training step at the same widths (bf16 compute, f32
+ 11. cached: cached-support serving at the same widths, bf16, 512px, under
+     `vae_impl` "xla" and "auto": `precompute_supports` for a 1-shot and a
+     5-shot (two padded) support set (33 flash launches each) and
+     `predict_cached` at batch 4 and 1 (18 flash launches), each with exact
+     launch counts, times, a profile and peak memory; the cache's size; in
+     bf16 a repeat is bit-identical, padded shots' content changes no bit
+     and a batch-1 cache equals its four copies; in f32 (TF32 off) cached
+     equals the joint episode within one uint8 count;
+ 12. train: the training step at the same widths (bf16 compute, f32
      masters, remat, AdamW): launches per micro-step (65 flash forward, 32
      dq, 32 dkv, 109 + 109 GroupNorm), step times at gas 1 and 4, peak
      memory, a profile, the f32 kernel path against the dense path,
@@ -363,14 +382,20 @@ def episode_shapes():
     """The GroupNorm+SiLU shapes of a 1-shot batch-4 512px bf16 episode
     under `vae_impl="xla"` and the fused-resnet shapes under "fused", as
     the episode gives them: one full-width episode each with recorders in
-    place of the two ops, which compute the plain versions meanwhile."""
+    place of the two ops, which compute the plain versions meanwhile.  Also
+    the inputs, weights and outputs of the VAE encoder's three Downsample2D
+    in the first episode (B = 12) and in a batch-1 episode (B = 3)."""
     import torch
     from diffews_tpu_torch.models import layers
     from diffews_tpu_torch.ops import fused_resnet, groupnorm
     from diffews_tpu_torch.pipeline import DiffewsPipeline
 
-    gn, gn_fused, fr = {}, {}, {}
+    gn, gn_fused, fr, down = {}, {}, {}, []
     rec = {"gn": gn}
+
+    def down_rec(module, inputs, output):
+        down.append({"x": inputs[0].detach(), "w": module.conv.weight.detach(),
+                     "bias": module.conv.bias.detach(), "y": output.detach()})
 
     def gn_rec(x, weight, bias, *, groups, eps, act=None, impl="auto"):
         key = (tuple(x.shape), groups)
@@ -388,7 +413,13 @@ def episode_shapes():
     try:
         pipe = DiffewsPipeline(_full_bundle(), device="cuda", compute_dtype=torch.bfloat16)
         q, sup, m = _episode(4, 1, 512, seed=2)
+        hooks = [blk.downsamplers[0].register_forward_hook(down_rec)
+                 for blk in pipe.vae.encoder.down_blocks if hasattr(blk, "downsamplers")]
         pipe.predict(q, sup, m)
+        rec["gn"] = {}  # the batch-1 episode's GroupNorm shapes are not kept
+        pipe.predict(q[:1], sup[:1], m[:1])
+        for hook in hooks:
+            hook.remove()
         pipe.vae_impl, rec["gn"] = "fused", gn_fused
         pipe.predict(q, sup, m)
         n_gn, n_gn_fused = sum(gn.values()), sum(gn_fused.values())
@@ -399,7 +430,10 @@ def episode_shapes():
     check(n_gn == 94 and n_gn_fused == 44 and sum(fr.values()) == 50,
           f"episode sites: {n_gn} GroupNorm+SiLU (xla VAE; expected 94), {n_gn_fused} "
           f"(fused VAE; 44), {sum(fr.values())} fused convs (50)")
-    return gn, fr
+    check([tuple(d["x"].shape) for d in down] == [
+        (b, 512 >> i, 512 >> i, c) for b in (12, 3) for i, c in enumerate((128, 256, 512))],
+        f"the encoder's downsamples saw {[tuple(d['x'].shape) for d in down]}")
+    return gn, fr, down
 
 
 def _op_errors(got, want, dtype):
@@ -569,6 +603,102 @@ def phase_fused(fr_shapes):
     return rows
 
 
+DOWN_MAIN_SHAPE = (12, 512, 512, 128, 128)  # the encoder's first downsample, 1-shot b4
+# the kernel against the encoder's own output (cuDNN, bf16): two roundings
+# of f32 sums taken in different orders, relative to max|output|
+DOWN_VS_MODULE_TOL = 2e-2
+
+
+def phase_downsample(recorded):
+    """`recorded`: the encoder's three downsamples at B = 12 then B = 3
+    (`episode_shapes`).  Returns (rows, the launches of the counted drive)."""
+    import torch
+    import torch.nn.functional as F
+    from diffews_tpu_torch.ops import downsample as DS
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    emit("downsample phase: TF32 off; tolerances relative to max|plain| " + json.dumps(OP_TOL))
+    for d in recorded:
+        check(d["x"].is_contiguous() and d["x"].dtype == torch.bfloat16,
+              f"the encoder gave its downsample a {d['x'].dtype} input with strides "
+              f"{d['x'].stride()}")
+
+    # the op's own path: its entry point on the B = 12 encoder inputs, counted,
+    # and held against what the encoder's Downsample2D computed from them
+    _zero_counts()
+    drive = [DS.downsample_conv2x(d["x"], d["w"], d["bias"]) for d in recorded[:3]]
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    check(launches == {**_expect(0, 0, 0), "downsample_conv2x": 3},
+          f"three downsample_conv2x calls launched {launches}")
+    vs_module = []
+    for d, y in zip(recorded, drive):
+        check(tuple(y.shape) == tuple(d["y"].shape) and y.dtype == d["y"].dtype
+              and bool(torch.isfinite(y.float()).all()), f"downsample output {tuple(y.shape)}")
+        err = (y.float() - d["y"].float()).abs().max().item() / d["y"].float().abs().max().item()
+        check(err <= DOWN_VS_MODULE_TOL, f"downsample kernel vs the encoder's own output at "
+              f"{tuple(d['x'].shape)}: {err:.3g} of max (tolerance {DOWN_VS_MODULE_TOL})")
+        vs_module.append(err)
+    del drive
+    emit({"phase": "downsample_entry_point_b12", "kernel_launches": launches,
+          "max_rel_err_vs_encoder_output": vs_module})
+
+    rows, made = [], 0
+    before = DS.downsample_conv2x.launches
+    for d in recorded:
+        bsz, h, w, cin = d["x"].shape
+        cout = d["w"].shape[0]
+        for dt in (torch.float32, torch.bfloat16):
+            name = str(dt).replace("torch.", "")
+            x, wt, bias = d["x"].to(dt), d["w"].to(dt), d["bias"].float()
+            y = DS.downsample_conv2x(x, wt, bias)
+            want = DS.downsample_conv2x_reference(x, wt, bias)
+            torch.cuda.synchronize()
+            err, mx, mean, ok = _op_errors(y, want, name)
+            same = torch.equal(y, DS.downsample_conv2x(x, wt, bias))
+            # an image's bottom padding row is zeros, never the next image's
+            # first row: each image alone equals its row of the batch
+            alone = all(torch.equal(DS.downsample_conv2x(x[i:i + 1], wt, bias)[0], y[i])
+                        for i in range(bsz))
+            made += 2 + bsz
+            ok = ok and same and alone
+            del want
+            reps = (5, 2) if dt == torch.bfloat16 else (2, 1)
+            ms = cuda_ms(lambda: DS.downsample_conv2x(x, wt, bias), *reps)
+            made += sum(reps)
+            plain_ms = cuda_ms(lambda: DS.downsample_conv2x_reference(x, wt, bias),
+                               reps=2, warmup=1)
+            # the library yardstick: the pad and cuDNN's strided conv
+            xc, wc = x.permute(0, 3, 1, 2), wt.to(memory_format=torch.channels_last)
+            bc = bias.to(dt)
+            lib_ms = cuda_ms(lambda: F.conv2d(F.pad(xc, (0, 1, 0, 1)), wc, bc, stride=2), *reps)
+            elt = x.element_size()
+            flops = 2.0 * y.numel() * 9 * cin
+            nbytes = (x.numel() + y.numel() + wt.numel()) * elt + cout * 4
+            t_ops = flops / (PEAK_BF16 if dt == torch.bfloat16 else PEAK_F32)
+            t_mem = nbytes / MEM_BW
+            row = {"shape": [bsz, h, w, cin, cout], "dtype": name, "max_abs_err": err,
+                   "max_rel_err": mx, "mean_rel_err": mean, "repeat_bit_identical": same,
+                   "image_alone_equals_batch_row": alone, "ms": ms, "plain_ms": plain_ms,
+                   "library_ms": lib_ms, "bound_ms": max(t_ops, t_mem) * 1e3,
+                   "bound_by": "operations" if t_ops >= t_mem else "bytes",
+                   "tflops": flops / ms / 1e9, "gbytes_per_s": nbytes / ms / 1e6, "ok": ok}
+            rows.append(row)
+            emit(row)
+            check(ok, f"downsample kernel disagrees with the plain version at "
+                      f"{row['shape']} {name}: {row}")
+            del x, wt, y
+        torch.cuda.empty_cache()
+    check(DS.downsample_conv2x.launches - before == made,
+          f"the launch counter rose by {DS.downsample_conv2x.launches - before} over {made} "
+          "kernel calls")
+    RESULTS["downsample"] = {"entry_point_b12": {"kernel_launches": launches,
+                                                 "max_rel_err_vs_encoder_output": vs_module},
+                             "rows": rows}
+    return rows, launches
+
+
 def _episode(b, n, s, seed):
     rng = np.random.default_rng(seed)
     q = rng.integers(0, 256, (b, s, s, 3), dtype=np.uint8)
@@ -582,33 +712,48 @@ def _episode(b, n, s, seed):
     return q, sup, m
 
 
-def _uint8_close(a, b, what):
+def _diff_stats(a, b):
+    """Largest uint8 difference and the share of values that differ."""
     d = np.abs(a.astype(np.int32) - b.astype(np.int32))
-    frac = float((d != 0).mean())
-    check(d.max() <= 1 and frac < 0.01,
-          f"{what}: max uint8 diff {d.max()}, {frac:.4f} of pixels differ "
+    return int(d.max()), float((d != 0).mean())
+
+
+def _uint8_close(a, b, what):
+    mx, frac = _diff_stats(a, b)
+    check(mx <= 1 and frac < 0.01,
+          f"{what}: max uint8 diff {mx}, {frac:.4f} of pixels differ "
           "(allowed: <= 1 count on < 1% of pixels)")
-    return int(d.max()), frac
+    return mx, frac
 
 
 def _launch_counts():
-    from diffews_tpu_torch.ops import fused_resnet, groupnorm
+    from diffews_tpu_torch.ops import downsample, fused_resnet, groupnorm
     from diffews_tpu_torch.ops.flash_attention import flash_attention
 
     return {"flash_attention_fwd": flash_attention.launches,
             "gn_stats": groupnorm.gn_stats_kernel.launches,
             "gn_apply": groupnorm.gn_apply_kernel.launches,
-            "fused_gn_silu_conv3x3": fused_resnet.gn_silu_conv3x3.launches}
+            "fused_gn_silu_conv3x3": fused_resnet.gn_silu_conv3x3.launches,
+            "downsample_conv2x": downsample.downsample_conv2x.launches}
 
 
 def _zero_counts():
-    from diffews_tpu_torch.ops import fused_resnet, groupnorm
+    from diffews_tpu_torch.ops import downsample, fused_resnet, groupnorm
     from diffews_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bwd
 
     flash_attention.launches = 0
     flash_attention_bwd.dq_launches = flash_attention_bwd.dkv_launches = 0
     groupnorm.gn_stats_kernel.launches = groupnorm.gn_apply_kernel.launches = 0
     fused_resnet.gn_silu_conv3x3.launches = 0
+    downsample.downsample_conv2x.launches = 0
+
+
+def _expect(flash, gn, fused):
+    """Launch counts of a pipeline path: `gn` of each GroupNorm kernel, and
+    no downsample launch (the op is on no pipeline path, as in the JAX
+    package)."""
+    return {"flash_attention_fwd": flash, "gn_stats": gn, "gn_apply": gn,
+            "fused_gn_silu_conv3x3": fused, "downsample_conv2x": 0}
 
 
 def phase_tiny():
@@ -659,6 +804,51 @@ def phase_tiny():
                       "mask_flips": flips, "kernel_launches": counts}
     RESULTS["tiny"] = out
     emit({"phase": "tiny", "dtype": "float32", "tf32": False, **out})
+
+    # cached-support serving: the card against the CPU and against `predict`
+    cached = {}
+    for label, variant in (("kv_fusion", False), ("attn_mask", True)):
+        pipes = {dev: DiffewsPipeline(random_pipeline_bundle(*cfgs, seed=0), device=dev,
+                                      attn_mask_variant=variant) for dev in ("cpu", "cuda")}
+        # (a) a batch-2 cache of 3 shots, one of row 0's padded
+        q, sup, m = _episode(2, 3, 32, seed=4)
+        sm = np.array([[True, True, False], [True, True, True]])
+        res = {}
+        for dev, pipe in pipes.items():
+            _zero_counts()
+            cache = pipe.precompute_supports(sup, m, shot_mask=sm)
+            n_capture = _launch_counts()["flash_attention_fwd"]
+            res[dev] = pipe.predict_cached(q, cache, r_threshold=0.25)
+            n_cached = _launch_counts()["flash_attention_fwd"] - n_capture
+        what = f"tiny cached GPU vs CPU ({label})"
+        check(n_capture > n_cached > 0, f"{what}: {n_capture} flash launches in the capture, "
+              f"{n_cached} in the cached predict")
+        mx, frac = _uint8_close(res["cuda"].seg_colored, res["cpu"].seg_colored, what)
+        flips = float((res["cuda"].mask != res["cpu"].mask).mean())
+        check(flips < 0.01, f"{what}: {flips:.4f} of mask pixels flip")
+        joint = pipes["cuda"].predict(q, sup, m, shot_mask=sm, r_threshold=0.25)
+        jmx, jfrac = _uint8_close(res["cuda"].seg_colored, joint.seg_colored,
+                                  f"tiny cached vs joint predict ({label})")
+        # (b) a batch-1 cache (2 shots, one padded) under a batch-3 query,
+        # against three joint batch-1 episodes
+        _, sup1, m1 = _episode(1, 2, 32, seed=5)
+        q3 = _episode(3, 1, 32, seed=6)[0]
+        sm1 = np.array([[True, False]])
+        cache1 = pipes["cuda"].precompute_supports(sup1, m1, shot_mask=sm1)
+        got3 = pipes["cuda"].predict_cached(q3, cache1)
+        bmx = bfrac = 0
+        for i in range(3):
+            one = pipes["cuda"].predict(q3[i:i + 1], sup1, m1, shot_mask=sm1)
+            a, b = _uint8_close(got3.seg_colored[i:i + 1], one.seg_colored,
+                                f"tiny batch-1 cache under a batch-3 query, row {i} ({label})")
+            bmx, bfrac = max(bmx, a), max(bfrac, b)
+        cached[label] = {"flash_launches_capture": n_capture, "flash_launches_cached": n_cached,
+                         "max_uint8_diff_vs_cpu": mx, "frac_differ_vs_cpu": frac,
+                         "mask_flips_vs_cpu": flips, "max_uint8_diff_vs_joint": jmx,
+                         "frac_differ_vs_joint": jfrac, "broadcast_max_uint8_diff": bmx,
+                         "broadcast_frac_differ": bfrac}
+    RESULTS["tiny_cached"] = cached
+    emit({"phase": "tiny_cached", "dtype": "float32", "tf32": False, **cached})
 
 
 def _train_batch(gas, b, n, s, seed, padded=0, device="cpu"):
@@ -792,6 +982,8 @@ def _kernel_class(name: str) -> str:
         return "gn_apply (B4b)"
     if "conv_mma_kernel" in n or "conv_f32_kernel" in n:
         return "fused_gn_silu_conv3x3 (B5)"
+    if "down_mma_kernel" in n or "down_f32_kernel" in n:
+        return "downsample_conv2x (B6)"
     if "sum_partials" in n:
         return "statistics partial sums (B4a, B5)"
     if "fprop" in n or "conv" in n or "cudnn" in n:
@@ -843,49 +1035,52 @@ def profile_episode(fn) -> dict:
 # per fused head.  "mixed" fuses the encoder's 512² and 256² resnets and the
 # decoder's 256² and 512² resnets and head; "auto" fuses the encode of 3
 # images, never the decode.
-EPISODE_LAUNCHES = {
-    "xla": {"flash_attention_fwd": 34, "gn_stats": 94, "gn_apply": 94,
-            "fused_gn_silu_conv3x3": 0},
-    "fused": {"flash_attention_fwd": 34, "gn_stats": 44, "gn_apply": 44,
-              "fused_gn_silu_conv3x3": 50},
-    "mixed": {"flash_attention_fwd": 34, "gn_stats": 73, "gn_apply": 73,
-              "fused_gn_silu_conv3x3": 21},
-    "auto_b1": {"flash_attention_fwd": 34, "gn_stats": 73, "gn_apply": 73,
-                "fused_gn_silu_conv3x3": 21},
-}
+EPISODE_LAUNCHES = {"xla": _expect(34, 94, 0), "fused": _expect(34, 44, 50),
+                    "mixed": _expect(34, 73, 21), "auto_b1": _expect(34, 73, 21)}
 VAE_F32_TOL = 2e-3  # fused vs xla VAE, f32, TF32 off: max|Δ| / max|xla|
 
 
-def _timed_episode(pipe, vae_impl, args, label, card):
-    """Warm up, then one predict with the launch counts zeroed before it and
-    read after it, three timed repeats and a profile.  Returns (result of
-    the counted predict, record)."""
+def _same_seg(a, b) -> bool:
+    return np.array_equal(a.seg_colored, b.seg_colored)
+
+
+def _timed_run(run, same, expected, label, card):
+    """Warm up, then one `run()` with the launch counts zeroed before it and
+    read after it (they must equal `expected`, and its result the warm-up's
+    by `same`), three timed repeats and a profile; every run is timed to the
+    device's end.  Returns (result of the counted run, record)."""
     import torch
 
-    pipe.vae_impl = vae_impl
-    warm = pipe.predict(*args, r_threshold=0.25)  # cuDNN plans, allocator
-    torch.cuda.synchronize()
+    def timed():
+        t0 = time.time()
+        out = run()
+        torch.cuda.synchronize()
+        return out, time.time() - t0
+
+    warm, _ = timed()  # cuDNN plans, allocator
     torch.cuda.reset_peak_memory_stats()
     _zero_counts()
-    t0 = time.time()
-    out = pipe.predict(*args, r_threshold=0.25)
-    wall = time.time() - t0
+    out, wall = timed()
     counts = _launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    check(counts == EPISODE_LAUNCHES[label], f"{label} predict launched {counts}, "
-          f"expected {EPISODE_LAUNCHES[label]}")
-    check(np.array_equal(warm.seg_colored, out.seg_colored), f"{label}: repeat differs")
-    walls = []
-    for _ in range(3):
-        t0 = time.time()
-        pipe.predict(*args, r_threshold=0.25)
-        walls.append(time.time() - t0)
-    prof = profile_episode(lambda: pipe.predict(*args, r_threshold=0.25))
+    check(counts == expected, f"{label} launched {counts}, expected {expected}")
+    check(same(warm, out), f"{label}: repeat differs")
+    del warm
+    walls = [timed()[1] for _ in range(3)]
+    prof = profile_episode(run)
     emit({"phase": f"profile_{label}_512px_bf16", **prof, "card": card})
-    rec = {"vae_impl": vae_impl, "kernel_launches": counts, "wall_s_first": wall,
+    rec = {"kernel_launches": counts, "wall_s_first": wall,
            "wall_s": walls, "wall_s_median": statistics.median(walls),
            "peak_mem_gb": peak / 1e9, "profile": prof, "card": card}
     return out, rec
+
+
+def _timed_episode(pipe, vae_impl, args, label, card):
+    """`_timed_run` of `pipe.predict(*args)` under `vae_impl`."""
+    pipe.vae_impl = vae_impl
+    out, rec = _timed_run(lambda: pipe.predict(*args, r_threshold=0.25), _same_seg,
+                          EPISODE_LAUNCHES[label], label, card)
+    return out, {"vae_impl": vae_impl, **rec}
 
 
 def _padded_invariant(pipe, vae_impl, q5, sup5, m5, sm):
@@ -1010,6 +1205,162 @@ def phase_full(card):
         ("episode_1shot_b1_auto", "one_shot_b1_auto"))}
 
 
+# launches of cached-support serving by (`vae_impl`, call).  A capture runs
+# the encoder (1 flash launch in its mid block, 21 GroupNorm+SiLU sites) and
+# the joint UNet over the support rows and a dummy query (16 sites x 2 flash
+# launches, 44 GroupNorm+SiLU sites) and no decoder; a cached predict runs
+# the encoder, the query-only UNet (16 flash launches) and the decoder (1
+# flash launch, 29 GroupNorm+SiLU sites).  "auto" fuses an encode of <= 4
+# images (21 fused convs in place of the encoder's 21 GroupNorm launches):
+# the 1-shot capture (2 images) and the batch-4 and batch-1 predicts, not the
+# 5-shot capture (10 images).
+CACHED_LAUNCHES = {
+    ("xla", "capture"): _expect(33, 65, 0), ("xla", "predict"): _expect(18, 94, 0),
+    ("auto", "capture_small"): _expect(33, 44, 21), ("auto", "capture"): _expect(33, 65, 0),
+    ("auto", "predict"): _expect(18, 73, 21),
+}
+CACHE_SITES = 16  # fused self-attention sites of the SD-2.1 UNet
+
+
+def _same_cache(a, b) -> bool:
+    import torch
+
+    return len(a.entries) == len(b.entries) and all(
+        (x is None and y is None) or torch.equal(x, y)
+        for ea, eb in zip(a.entries, b.entries) for x, y in zip(ea, eb))
+
+
+def _cache_bytes(cache) -> int:
+    return sum(t.numel() * t.element_size() for e in cache.entries for t in e if t is not None)
+
+
+def _repeat_cache(cache, b):
+    """The batch-b cache made of b copies of a batch-1 cache's entries."""
+    from diffews_tpu_torch.pipeline import SupportCache
+
+    rep = lambda t: None if t is None else t.repeat((b,) + (1,) * (t.ndim - 1))
+    return SupportCache(entries=tuple(tuple(rep(t) for t in e) for e in cache.entries),
+                        shot_mask=rep(cache.shot_mask), n_shots=cache.n_shots, batch=b)
+
+
+def phase_cached(card):
+    import torch
+    from diffews_tpu_torch.pipeline import DiffewsPipeline
+
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    t0 = time.time()
+    pipe = DiffewsPipeline(_full_bundle(), device="cuda", compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    res = {"setup_s": time.time() - t0}
+    joint = RESULTS.get("full", {}).get("one_shot_b4", {})
+    res["joint_episode_1shot_b4"] = {k: joint.get(k) for k in ("wall_s_median", "wall_s")}
+    res["joint_episode_1shot_b4"]["device_busy_ms"] = joint.get("profile", {}).get(
+        "device_busy_ms")
+    q, sup, m = _episode(4, 1, 512, seed=2)     # phase full's 1-shot episode
+    q5, sup5, m5 = _episode(1, 5, 512, seed=3)  # and its 5-shot one
+    sm = np.array([[True, True, True, False, False]])
+    sup_o, m_o = sup5.copy(), m5.copy()
+    sup_o[:, 3:], m_o[:, 3:] = 255 - sup5[:, 3:], 1 - m5[:, 3:]
+    paths = {}
+    slim = lambda rec: {k: v for k, v in rec.items() if k != "profile"}
+    for vae_impl in ("xla", "auto"):
+        pipe.vae_impl = vae_impl
+        tag = "" if vae_impl == "xla" else "_auto"
+        small = "capture_small" if vae_impl == "auto" else "capture"
+        runs = {}
+        # the caches: one shot at batch 1; five shots, the last two padded
+        cache1, runs["precompute_supports_1shot_b1"] = _timed_run(
+            lambda: pipe.precompute_supports(sup[:1], m[:1]), _same_cache,
+            CACHED_LAUNCHES[vae_impl, small], f"precompute_supports_1shot_b1{tag}", card)
+        cache5, runs["precompute_supports_5shot_2padded_b1"] = _timed_run(
+            lambda: pipe.precompute_supports(sup5, m5, shot_mask=sm), _same_cache,
+            CACHED_LAUNCHES[vae_impl, "capture"], f"precompute_supports_5shot_b1{tag}", card)
+        for name, cache, n in (("1shot", cache1, 1), ("5shot", cache5, 5)):
+            ok = len(cache.entries) == CACHE_SITES and all(
+                k.is_contiguous() and v.is_contiguous() and bias is None
+                and k.shape[:2] == (1, n) and k.dtype == torch.bfloat16
+                and k.untyped_storage().nbytes() == k.numel() * k.element_size()
+                for k, v, bias in cache.entries)
+            check(ok, f"{name} cache: {len(cache.entries)} entries, shapes "
+                      f"{[tuple(e[0].shape) for e in cache.entries]}")
+        runs["precompute_supports_1shot_b1"]["cache_bytes"] = _cache_bytes(cache1)
+        runs["precompute_supports_5shot_2padded_b1"]["cache_bytes"] = _cache_bytes(cache5)
+        # the cached predicts
+        expect = CACHED_LAUNCHES[vae_impl, "predict"]
+        out4, runs["predict_cached_1shot_b4"] = _timed_run(
+            lambda: pipe.predict_cached(q, cache1, r_threshold=0.25), _same_seg, expect,
+            f"predict_cached_1shot_b4{tag}", card)
+        out1, runs["predict_cached_1shot_b1"] = _timed_run(
+            lambda: pipe.predict_cached(q[:1], cache1, r_threshold=0.25), _same_seg, expect,
+            f"predict_cached_1shot_b1{tag}", card)
+        out5, runs["predict_cached_5shot_2padded_b1"] = _timed_run(
+            lambda: pipe.predict_cached(q5, cache5, r_threshold=0.25), _same_seg, expect,
+            f"predict_cached_5shot_b1{tag}", card)
+        check(out4.seg_colored.shape == (4, 512, 512, 3) and out4.seg_colored.dtype == np.uint8
+              and out4.mask.shape == (4, 512, 512) and out4.mask.dtype == bool,
+              f"cached seg {out4.seg_colored.shape} {out4.seg_colored.dtype}")
+        # bf16, exact: the padded shots' content reaches no output bit
+        other = pipe.predict_cached(q5, pipe.precompute_supports(sup_o, m_o, shot_mask=sm),
+                                    r_threshold=0.25)
+        check(_same_seg(other, out5), f"padded shots' content changed the cached bf16 "
+                                      f"prediction (vae_impl={vae_impl})")
+        # bf16, exact: the batch-1 cache under 4 queries equals the batch-4
+        # cache made of 4 copies of its entries
+        copies = pipe.predict_cached(q, _repeat_cache(cache1, 4), r_threshold=0.25)
+        check(_same_seg(copies, out4), "a batch-1 cache under 4 queries differs from the "
+                                       f"batch-4 cache of 4 copies (vae_impl={vae_impl})")
+        # reported: against the cache captured from 4 copies of the support
+        # set, against the joint episode and against the batch-1 cached
+        # predict; all run the VAE or UNet at another batch shape, which in
+        # bf16 with random weights moves outputs by tens of counts
+        cap4 = pipe.precompute_supports(np.repeat(sup[:1], 4, 0), np.repeat(m[:1], 4, 0))
+        d_cap4 = _diff_stats(pipe.predict_cached(q, cap4, r_threshold=0.25).seg_colored,
+                             out4.seg_colored)
+        d_joint = _diff_stats(pipe.predict(q, np.repeat(sup[:1], 4, 0), np.repeat(m[:1], 4, 0),
+                                           r_threshold=0.25).seg_colored, out4.seg_colored)
+        d_b1 = _diff_stats(out1.seg_colored[0], out4.seg_colored[0])
+        del cap4, other, copies
+        held = {
+            "bf16_repeat_bit_identical": True, "bf16_padded_content_invariant": True,
+            "bf16_batch1_cache_equals_4_copies": True,
+            "bf16_vs_cache_captured_at_batch4": {"max_uint8_diff": d_cap4[0],
+                                                 "frac_differ": d_cap4[1]},
+            "bf16_vs_joint_episode": {"max_uint8_diff": d_joint[0], "frac_differ": d_joint[1]},
+            "bf16_b1_vs_b4_row0": {"max_uint8_diff": d_b1[0], "frac_differ": d_b1[1]}}
+        emit({"phase": f"cached_512px_bf16_{vae_impl}",
+              **{k: slim(v) for k, v in runs.items()}, **held})
+        res[vae_impl] = {**runs, **held}
+        paths.update({k + tag: v["kernel_launches"] for k, v in runs.items()})
+        del cache1, cache5
+    del pipe
+    torch.cuda.empty_cache()
+
+    # f32, TF32 off: cached equals the joint episode within one uint8 count
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pipe32 = DiffewsPipeline(_full_bundle(), device="cuda", compute_dtype=torch.float32)
+    res["f32_cached_vs_joint"] = {}
+    sup2, m2 = np.repeat(sup[:1], 2, 0), np.repeat(m[:1], 2, 0)
+    for label, qq, cargs, jargs, kw in (
+            ("1shot_batch1_cache_under_b2", q[:2], (sup[:1], m[:1]), (sup2, m2), {}),
+            ("5shot_2padded_b1", q5, (sup5, m5), (sup5, m5), {"shot_mask": sm})):
+        cached = pipe32.predict_cached(qq, pipe32.precompute_supports(*cargs, **kw),
+                                       r_threshold=0.25)
+        full = pipe32.predict(qq, *jargs, r_threshold=0.25, **kw)
+        mx, frac = _uint8_close(cached.seg_colored, full.seg_colored,
+                                f"f32 cached vs joint ({label})")
+        flips = float((cached.mask != full.mask).mean())
+        check(flips < 0.01, f"f32 cached vs joint ({label}): {flips:.4f} of mask pixels flip")
+        res["f32_cached_vs_joint"][label] = {"max_uint8_diff": mx, "frac_differ": frac,
+                                             "mask_flips": flips}
+    emit({"phase": "cached_512px_f32_vs_joint", "tf32": False, **res["f32_cached_vs_joint"]})
+    del pipe32
+    torch.cuda.empty_cache()
+    RESULTS["cached"] = res
+    return paths
+
+
 def _grads_compare(ga, gb):
     """Global-norm relative difference and the least per-leaf cosine."""
     import torch
@@ -1082,10 +1433,11 @@ def phase_train(card):
                 "flash_attention_bwd_dq": flash_attention_bwd.dq_launches,
                 "flash_attention_bwd_dkv": flash_attention_bwd.dkv_launches,
                 "gn_stats": counts["gn_stats"], "gn_apply": counts["gn_apply"],
-                "fused_gn_silu_conv3x3": counts["fused_gn_silu_conv3x3"]}
+                "fused_gn_silu_conv3x3": counts["fused_gn_silu_conv3x3"],
+                "downsample_conv2x": counts["downsample_conv2x"]}
     check(launches == {"flash_attention_fwd": 65, "flash_attention_bwd_dq": 32,
                        "flash_attention_bwd_dkv": 32, "gn_stats": 109, "gn_apply": 109,
-                       "fused_gn_silu_conv3x3": 0},
+                       "fused_gn_silu_conv3x3": 0, "downsample_conv2x": 0},
           f"a 1-shot micro-step launched {launches}; expected 65 flash forward (32 + 32 "
           "recomputed under remat + 1 VAE encode), 32 dq, 32 dkv, and 109 GroupNorm "
           "stats and apply (44 + 44 recomputed + 21 in the VAE encode)")
@@ -1276,11 +1628,14 @@ def phase_train(card):
     return launches
 
 
-def kernel_record(rows, bwd_rows, norm_rows, fused_rows, episode_launches, train_launches):
+def kernel_record(rows, bwd_rows, norm_rows, fused_rows, down_rows, episode_launches,
+                  train_launches, cached_launches, down_launches):
     """One entry per kernel.  `launches` is the count on the path of the
     slice that ported it (the training micro-step for the flash kernels,
     the default episode for the GroupNorm kernels, the `vae_impl="fused"`
-    episode for the fused conv); `launches_by_path` gives every path's."""
+    episode for the fused conv, the entry point `downsample_conv2x` on the
+    encoder's three B = 12 inputs for the downsample kernel, which no
+    pipeline path calls); `launches_by_path` gives every path's."""
     main = [r for r in rows if r["shape"] == MAIN_SHAPE and r["dtype"] == "bfloat16"][0]
     bmain = [r for r in bwd_rows
              if r["shape"] == BWD_MAIN_SHAPE and r["dtype"] == "bfloat16"][0]
@@ -1288,7 +1643,11 @@ def kernel_record(rows, bwd_rows, norm_rows, fused_rows, episode_launches, train
              if tuple(r["shape"]) == NORM_MAIN_SHAPE and r["dtype"] == "bfloat16"][0]
     fmain = [r for r in fused_rows if tuple(r["shape"]) + (r["residual"],) == FUSED_MAIN_SHAPE
              and r["dtype"] == "bfloat16"][0]
-    paths = dict(episode_launches, train_micro_step_1shot_b1=train_launches)
+    dmain = [r for r in down_rows
+             if tuple(r["shape"]) == DOWN_MAIN_SHAPE and r["dtype"] == "bfloat16"][0]
+    paths = dict(episode_launches, **cached_launches,
+                 train_micro_step_1shot_b1=train_launches,
+                 downsample_conv2x_encoder_inputs_b12=down_launches)
     by_path = lambda key: {p: c[key] for p, c in paths.items()}
     src = "diffews_tpu_torch/ops/csrc/"
     fwd = {"name": "flash_attention_fwd", "route": "cuda", "source": src + "flash_attention_fwd.cu",
@@ -1347,10 +1706,22 @@ def kernel_record(rows, bwd_rows, norm_rows, fused_rows, episode_launches, train
         "bound_by": fmain["bound_by"], "library_ms": fmain["library_ms"],
         "shape": "B12 512x512 128->128 with residual, bf16; library_ms is cuDNN's conv "
                  "alone (F.conv2d with bias)"})
+    out.append({
+        "name": "downsample_conv2x", "route": "cuda", "source": src + "downsample.cu",
+        "replaces": "diffews_tpu/ops/downsample.py:86",
+        "launches": down_launches["downsample_conv2x"],
+        "launches_by_path": by_path("downsample_conv2x"),
+        "max_abs_err": max(r["max_abs_err"] for r in down_rows),
+        "ms": dmain["ms"], "plain_ms": dmain["plain_ms"], "bound_ms": dmain["bound_ms"],
+        "bound_by": dmain["bound_by"], "library_ms": dmain["library_ms"],
+        "shape": "B12 512x512 128->128 bf16 (the encoder's first downsample); launches: "
+                 "the entry point on the encoder's three B = 12 inputs, 0 on every "
+                 "pipeline path (no model calls the op, as in the JAX package); "
+                 "library_ms is F.pad + cuDNN's strided F.conv2d"})
     return {"kernels": out}
 
 
-PHASES = "device,build,kernel,bwd,norm,fused,tiny,tiny_train,full,train"
+PHASES = "device,build,kernel,bwd,norm,fused,downsample,tiny,tiny_train,full,cached,train"
 
 
 def main():
@@ -1371,16 +1742,21 @@ def main():
         phase_build()
     rows = phase_kernel() if "kernel" in phases else []
     bwd_rows = phase_bwd() if "bwd" in phases else []
-    norm_rows, fused_rows = [], []
-    if "norm" in phases or "fused" in phases:
-        gn_shapes, fr_shapes = episode_shapes()
+    norm_rows, fused_rows, down_rows, down_launches = [], [], [], None
+    if phases & {"norm", "fused", "downsample"}:
+        gn_shapes, fr_shapes, down_inputs = episode_shapes()
         norm_rows = phase_norm(gn_shapes) if "norm" in phases else []
         fused_rows = phase_fused(fr_shapes) if "fused" in phases else []
+        if "downsample" in phases:
+            down_rows, down_launches = phase_downsample(down_inputs)
+        del down_inputs
+        torch.cuda.empty_cache()
     if "tiny" in phases:
         phase_tiny()
     if "tiny_train" in phases:
         phase_tiny_train()
     episode_launches = phase_full(card) if "full" in phases else None
+    cached_launches = phase_cached(card) if "cached" in phases else None
     train_launches = phase_train(card) if "train" in phases else None
     RESULTS["seconds"] = time.time() - t_start
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
@@ -1388,8 +1764,8 @@ def main():
         json.dump(RESULTS, f, indent=1)
     if phases != set(PHASES.split(",")):
         fail(f"phases {sorted(phases)} ran; the kernel record needs all of {PHASES}")
-    emit(kernel_record(rows, bwd_rows, norm_rows, fused_rows, episode_launches,
-                       train_launches))
+    emit(kernel_record(rows, bwd_rows, norm_rows, fused_rows, down_rows, episode_launches,
+                       train_launches, cached_launches, down_launches))
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
 

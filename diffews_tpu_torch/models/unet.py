@@ -22,15 +22,21 @@ package's granularity (`unet.py:332-396`): each down layer (resnet +
 attention), the mid block and each up layer (skip concat + resnet +
 attention) run under `torch.utils.checkpoint` (non-reentrant).
 
+Support-KV cache (`kv_capture` / `kv_cache`, `unet.py:59-123,230-266`): a
+capturing forward appends every self-attention site's shot-folded support
+K/V (and the attn-mask key bias) in forward order; a cached forward runs
+the query stream alone and attends over `[own ‖ cached support]` at each
+site.  The support rows never read the query rows, so the captured K/V
+equal a joint forward's.
+
 `state_dict` keys are the diffusers `UNet2DConditionModel` keys plus
-`conv_in_ref.*`.  Support-KV capture/caching and shot-parallel attention
-are not ported yet (ROADMAP A8, A11).
+`conv_in_ref.*`.  Shot-parallel attention is not ported yet (ROADMAP A11).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, Iterator, Optional
 
 import torch
 from torch import nn
@@ -57,6 +63,8 @@ class _Streams:
     shot_mask: Optional[torch.Tensor]   # (B, N) bool
     sup_bias: Optional[torch.Tensor]    # (B, N*S) attn-mask key bias
     attn_impl: str
+    kv_capture: Optional[list] = None   # receives (k_sup, v_sup, bias) per site
+    kv_iter: Optional[Iterator] = None  # yields captured entries, in site order
 
 
 class Attention(nn.Module):
@@ -73,7 +81,19 @@ class Attention(nn.Module):
         q = split_heads(self.to_q(h), self.heads)
         k = split_heads(self.to_k(h), self.heads)
         v = split_heads(self.to_v(h), self.heads)
-        if st.ref_rows is None:
+        if st.kv_iter is not None:
+            entry = next(st.kv_iter, None)
+            if entry is None:
+                raise ValueError("kv_cache has fewer entries than this config's "
+                                 "fused self-attention sites")
+            k_sup, v_sup, bias = entry
+            # a batch-1 cache (and its mask and bias) serves every query row
+            over_b = lambda t: t if t is None or t.shape[0] == h.shape[0] else \
+                t.expand((h.shape[0],) + tuple(t.shape[1:]))
+            out = fused_kv_attention(q, k, v, over_b(k_sup), over_b(v_sup),
+                                     shot_mask=over_b(st.shot_mask),
+                                     support_bias=over_b(bias), impl=st.attn_impl)
+        elif st.ref_rows is None:
             out = fused_kv_attention(q, k, v, None, None, impl=st.attn_impl)
         else:
             r = st.ref_rows
@@ -83,6 +103,10 @@ class Attention(nn.Module):
                                          impl=st.attn_impl)
             k_sup = k[:r].reshape(b, st.n_shots, s, self.heads, hd)
             v_sup = v[:r].reshape(b, st.n_shots, s, self.heads, hd)
+            if st.kv_capture is not None:
+                # copies of the support rows alone: a view would keep the
+                # whole site's K and V (query rows too) alive in the cache
+                st.kv_capture.append((k_sup.clone(), v_sup.clone(), st.sup_bias))
             out_tag = fused_kv_attention(
                 q[r:], k[r:], v[r:], k_sup, v_sup, shot_mask=st.shot_mask,
                 support_bias=st.sup_bias, impl=st.attn_impl)
@@ -227,6 +251,8 @@ class UNet2DConditionModel(nn.Module):
         ref_mask: Optional[torch.Tensor] = None,
         attn_impl: str = "auto",
         remat: bool = False,
+        kv_capture: Optional[list] = None,
+        kv_cache=None,
     ) -> torch.Tensor:
         """Joint support+query forward.
 
@@ -237,7 +263,26 @@ class UNet2DConditionModel(nn.Module):
         repeated over shots; shot_mask: optional (B, N) bool; ref_mask:
         optional (B, N, Hm, Wm) binary support masks (attn-mask variant);
         remat: recompute each layer's activations in the backward pass.
+        kv_capture: optional list (needs `ref_sample`): every fused
+        self-attention site appends its `(k_sup, v_sup, bias)`, each K/V
+        (B, N, S, heads, d), bias the attn-mask key bias (B, N*S) or None.
+        kv_cache: optional sequence of such entries, consumed in forward
+        order, in place of `ref_sample`: the query stream runs alone and
+        attends over `[own ‖ cached support]`; entries of batch 1 serve any
+        query batch, and `shot_mask` applies to the cached shots.
         Returns (B, H, W, out_channels) for the query rows."""
+        if kv_cache is not None and ref_sample is not None:
+            raise ValueError("kv_cache replaces the support stream; "
+                             "pass either kv_cache or ref_sample, not both")
+        if kv_capture is not None and ref_sample is None:
+            raise ValueError("kv_capture requires ref_sample (a live support "
+                             "stream to capture)")
+        if remat and (kv_capture is not None or kv_cache is not None):
+            # checkpoint runs each layer again in the backward pass, which
+            # would consume the cache twice and capture every site twice
+            raise ValueError("kv_capture/kv_cache are serving features and do "
+                             "not compose with remat")
+        kv_iter = iter(kv_cache) if kv_cache is not None else None
         cfg = self.cfg
         b = sample.shape[0]
         if ref_sample is not None:
@@ -291,7 +336,8 @@ class UNet2DConditionModel(nn.Module):
                 sup_biases[sid] = (1.0 - m) * -10000.0
 
         def streams(sid):
-            return _Streams(ref_rows, n_shots, shot_mask, sup_biases.get(sid), attn_impl)
+            return _Streams(ref_rows, n_shots, shot_mask, sup_biases.get(sid), attn_impl,
+                            kv_capture, kv_iter)
 
         def layer(fn, *args):
             return checkpoint(fn, *args, use_reentrant=False) if remat else fn(*args)
@@ -319,6 +365,10 @@ class UNet2DConditionModel(nn.Module):
                           streams(n - 1 - i))
             if hasattr(blk, "upsamplers"):
                 h = blk.upsamplers[0](h)
+
+        if kv_iter is not None and next(kv_iter, None) is not None:
+            raise ValueError("kv_cache has more entries than this config's "
+                             "fused self-attention sites")
 
         # --- output head: query rows only ---
         if ref_rows:

@@ -1,7 +1,8 @@
 """One-step few-shot segmentation inference pipeline (PyTorch port).
 
 Port of `diffews_tpu/pipeline.py`'s main path (`pipeline.py:399-499,
-583-648,781-793,920-950`).  Per episode:
+583-648,781-793,920-950`) and its cached-support serving (`:501-565,
+658-779`).  Per episode:
 
   1. ingest uint8 (or [-1, 1] float) query and support images and {0,1}
      (or 3-channel [-1, 1]) support masks, normalised on the device with
@@ -14,9 +15,15 @@ Port of `diffews_tpu/pipeline.py`'s main path (`pipeline.py:399-499,
   5. VAE decode, clip, [0, 255] and truncation to uint8;
   6. the relative (or absolute) threshold, on the host or on the device.
 
+Repeated-support serving: `precompute_supports` runs steps 1-3 for a
+support set once, with a zero dummy query, and keeps every self-attention
+site's support K/V in a `SupportCache`; `predict_cached` then runs the
+query's encode, a query-only UNet forward over `[own ‖ cached support]`
+and steps 4-6 for any number of queries.
+
 PyTorch runs eagerly and CUDA launches are asynchronous, so `predict_async`
-returns as soon as the episode is queued; `PendingSeg.result()` is the
-synchronisation point.  The pipeline runs on `cuda` unless `device="cpu"`
+and `predict_cached_async` return as soon as the work is queued;
+`PendingSeg.result()` is the synchronisation point.  The pipeline runs on `cuda` unless `device="cpu"`
 is passed; it never moves to the CPU by itself.
 """
 
@@ -44,6 +51,20 @@ class SegOutput:
     seg_colored: np.ndarray  # (B, H, W, 3) uint8
     mask: Optional[np.ndarray] = None  # (B, H, W) bool, if thresholding requested
     uncertainty: Optional[np.ndarray] = None
+
+
+@dataclasses.dataclass
+class SupportCache:
+    """A support set encoded once for repeated-support serving (pipeline
+    `:51-71`): per self-attention site the shot-folded support K/V (and the
+    attn-mask key bias), and the shot validity mask, on the device.  Built
+    by `DiffewsPipeline.precompute_supports`, consumed by `predict_cached`
+    / `predict_cached_async`.  A cache of batch 1 serves any query batch."""
+
+    entries: tuple  # per site (k_sup, v_sup, bias or None)
+    shot_mask: Optional[torch.Tensor]  # (B, N) bool or None
+    n_shots: int
+    batch: int
 
 
 def resolve_device(device=None) -> torch.device:
@@ -213,6 +234,43 @@ class DiffewsPipeline:
             latent, x0 = self.scheduler.step(v, int(t), latent)
         return x0
 
+    def _capture(self, supports, masks, text_embed) -> tuple:
+        """The support stream once, with a zero dummy query (the support
+        rows never read the query rows, so the captured K/V are a joint
+        episode's): the per-site `(k_sup, v_sup, bias)` entries."""
+        b, n = supports.shape[0], supports.shape[1]
+        supports, masks = self._norm_img(supports), self._norm_mask(masks)
+        flat = lambda x: x.reshape((b * n,) + tuple(x.shape[2:]))
+        if self.attn_mask_variant:
+            ref_mask = (masks.float().mean(dim=-1) > 0.0).float()
+            lat = self._encode_images(flat(supports))
+            ref = lat.reshape((b, n) + tuple(lat.shape[1:]))
+        else:
+            ref_mask = None
+            lat = self._encode_images(torch.cat([flat(supports), flat(masks)], dim=0))
+            s_lat, m_lat = (x.reshape((b, n) + tuple(lat.shape[1:])) for x in lat.chunk(2))
+            ref = torch.cat([s_lat, m_lat], dim=-1)
+        ctx = text_embed.expand((b,) + tuple(text_embed.shape[1:])).to(self.compute_dtype)
+        self.scheduler.set_timesteps(1)
+        t = int(self.scheduler.timesteps[0]) * self.test_timestep
+        dummy_q = torch.zeros((b,) + tuple(lat.shape[1:3]) + (self.unet_cfg.in_channels,),
+                              dtype=self.compute_dtype, device=self.device)
+        cap: list = []
+        self.unet(dummy_q, t, ctx, ref_sample=ref, ref_mask=ref_mask,
+                  attn_impl=self.attn_impl, kv_capture=cap)
+        return tuple(cap)
+
+    def _x0_latent_cached(self, query, entries, shot_mask, text_embed) -> torch.Tensor:
+        """Predicted x0 latent of the queries against cached support K/V."""
+        q_lat = self._encode_images(self._norm_img(query))
+        ctx = text_embed.expand((q_lat.shape[0],) + tuple(text_embed.shape[1:])).to(
+            self.compute_dtype)
+        self.scheduler.set_timesteps(1)
+        t = int(self.scheduler.timesteps[0])
+        v = self.unet(q_lat, t * self.test_timestep, ctx, shot_mask=shot_mask,
+                      attn_impl=self.attn_impl, kv_cache=entries)
+        return self.scheduler.step(v, t, q_lat)[1]
+
     def _decode_resnet_impl(self) -> str:
         """The decoder's resnets: forced "fused"/"mixed" apply to the whole
         VAE; "auto"'s choice is encode-only (JAX `pipeline.py:474-481`)."""
@@ -246,18 +304,17 @@ class DiffewsPipeline:
         (`device_mask_from_seg`)."""
         query = _to_nhwc(np.asarray(query), 4)
         supports = _to_nhwc(np.asarray(supports), 5)
-        support_masks = np.asarray(support_masks)
-        if support_masks.ndim == 5:
-            support_masks = _to_nhwc(support_masks, 5)
-        elif support_masks.ndim != 4:
-            raise ValueError(
-                f"support_masks must be 4-D {{0,1}} or 5-D 3-channel [-1,1]; "
-                f"got shape {support_masks.shape}")
         x0 = self._x0_latent(
-            self._put(query), self._put(supports), self._put(support_masks),
-            self.empty_text_embed,
-            None if shot_mask is None else self._put(np.asarray(shot_mask, bool)),
-            denoising_steps)
+            self._put(query), self._put(supports), self._put(_masks_nhwc(support_masks)),
+            self.empty_text_embed, self._put_shot_mask(shot_mask), denoising_steps)
+        return self._pending(x0, out_size, r_threshold, threshold, mask_on_device)
+
+    def _put_shot_mask(self, shot_mask) -> Optional[torch.Tensor]:
+        return None if shot_mask is None else self._put(np.asarray(shot_mask, bool))
+
+    def _pending(self, x0, out_size, r_threshold, threshold, mask_on_device) -> "PendingSeg":
+        """Decode, resize and (optionally) threshold on the device; nothing
+        here waits for it."""
         img = self._decode_seg(x0)
         if out_size is not None and tuple(img.shape[1:3]) != tuple(out_size):
             img = nearest_resize(img, tuple(out_size))
@@ -266,6 +323,54 @@ class DiffewsPipeline:
             rel = r_threshold > 0
             mask_dev = device_mask_from_seg(img, r_threshold if rel else threshold, rel)
         return PendingSeg(img, r_threshold, threshold, mask_device=mask_dev)
+
+    @torch.inference_mode()
+    def precompute_supports(self, supports, support_masks, *, shot_mask=None) -> SupportCache:
+        """Encode a support set once for repeated-support serving: the
+        dominant serving pattern (one annotated support set, a whole dataset
+        or video of queries), which otherwise pays the support VAE encodes
+        and the UNet's support stream for every query.
+
+        Takes `predict`'s supports, support_masks and shot_mask (raw uint8
+        images and 4-D {0,1} masks included).  Build with batch 1 to serve
+        any query batch (the cache broadcasts), or with batch B to pair row
+        for row with B-row query batches.  Queues the work and returns
+        without waiting for the device."""
+        supports = _to_nhwc(np.asarray(supports), 5)
+        entries = self._capture(self._put(supports), self._put(_masks_nhwc(support_masks)),
+                                self.empty_text_embed)
+        return SupportCache(entries=entries, shot_mask=self._put_shot_mask(shot_mask),
+                            n_shots=supports.shape[1], batch=supports.shape[0])
+
+    @torch.inference_mode()
+    def predict_cached_async(self, query, cache: SupportCache, *, denoising_steps: int = 1,
+                             out_size: Optional[Tuple[int, int]] = None,
+                             r_threshold: float = 0.0, threshold: float = 0.0,
+                             mask_on_device: bool = False) -> "PendingSeg":
+        """Queue queries against a `SupportCache` and return a `PendingSeg`.
+
+        The same computation as `predict` with the cache's support set; the
+        VAE and UNet run at another batch shape than the joint episode's, so
+        the uint8 image may differ by one count at a few pixels in f32 (and
+        by what bf16 rounding makes of that).  Only `denoising_steps=1`:
+        the cache is captured at the one-step protocol's timestep.  Other
+        arguments as in `predict_async`."""
+        if denoising_steps != 1:
+            raise NotImplementedError(
+                "the support-KV cache is captured at the one-step protocol's "
+                "fixed timestep; multi-step denoising would need a cache per "
+                "timestep")
+        query = _to_nhwc(np.asarray(query), 4)
+        if cache.batch not in (1, query.shape[0]):
+            raise ValueError(f"cache batch {cache.batch} must be 1 (broadcast) or match "
+                             f"the query batch {query.shape[0]}")
+        x0 = self._x0_latent_cached(self._put(query), cache.entries, cache.shot_mask,
+                                    self.empty_text_embed)
+        return self._pending(x0, out_size, r_threshold, threshold, mask_on_device)
+
+    def predict_cached(self, *args, **kw) -> SegOutput:
+        """Blocking form of `predict_cached_async`."""
+        return self.predict_cached_async(*args, **kw).result()
 
     def predict(self, *args, **kw) -> SegOutput:
         """Blocking form of `predict_async`.
@@ -339,6 +444,18 @@ class PendingSeg:
             else:
                 mask = p.mean(axis=-1) > self._threshold
         return SegOutput(seg_colored=seg, mask=mask)
+
+
+def _masks_nhwc(support_masks) -> np.ndarray:
+    """Support masks as given: 4-D {0,1}, or 5-D 3-channel in NHWC."""
+    support_masks = np.asarray(support_masks)
+    if support_masks.ndim == 5:
+        return _to_nhwc(support_masks, 5)
+    if support_masks.ndim != 4:
+        raise ValueError(
+            f"support_masks must be 4-D {{0,1}} or 5-D 3-channel [-1,1]; "
+            f"got shape {support_masks.shape}")
+    return support_masks
 
 
 def _to_nhwc(x: np.ndarray, ndim: int) -> np.ndarray:

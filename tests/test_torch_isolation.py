@@ -45,6 +45,7 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys\n"
             "import diffews_tpu_torch.pipeline, diffews_tpu_torch.checkpoint\n"
             "import diffews_tpu_torch.ops._build, diffews_tpu_torch.training.state\n"
+            "import diffews_tpu_torch.ops.downsample\n"
             "bad = [m for m in sys.modules if any(m == t or m.startswith(t + '.')\n"
             "       for t in ('jax', 'optax', 'diffews_tpu'))]\n"
             "assert not bad, bad\n")
