@@ -9,11 +9,14 @@ Phases, each of which fails the run (non-zero exit) on any error:
 
   1. device: the card's name and power limit (`nvidia-smi`);
   2. build: compile every `diffews_tpu_torch/ops/csrc/*.cu` with nvcc (one
-     process each, started together) and print ptxas's registers/spills;
+     process each, started together), print ptxas's registers/spills,
+     and report the bf16 flash forward's registers, shared memory and
+     its SASS's wgmma (HGMMA) and TMA (UTMALDG) instructions;
   3. kernel: the flash-attention forward kernel against its plain version
      at every shape a 512px episode gives it, in f32 (TF32 off) and bf16,
      O and LSE, with kernel / plain / `F.scaled_dot_product_attention`
-     times;
+     times (kernel and SDPA: ten calls back to back between CUDA events),
+     TFLOP/s over the valid keys and the share of the bound;
   4. bwd: the backward kernels (dq, dkv) against their plain version at
      every shape a B = 1, 1-shot, 512px training micro-step gives them,
      plus the 5-shot padded and attn-mask query shapes, f32 (TF32 off) and
@@ -76,6 +79,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -109,8 +113,10 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
-def cuda_ms(fn, reps: int = 5, warmup: int = 2) -> float:
-    """Median device time of `fn()` in ms (CUDA events per run)."""
+def cuda_ms(fn, reps: int = 5, warmup: int = 2, inner: int = 1) -> float:
+    """Median device time of `fn()` in ms: CUDA events around `inner` calls
+    back to back, over `inner`.  With inner > 1 the host's launch time of
+    one call hides behind the device time of the one before it."""
     import torch
 
     for _ in range(warmup):
@@ -120,10 +126,11 @@ def cuda_ms(fn, reps: int = 5, warmup: int = 2) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(inner):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / inner)
     return statistics.median(times)
 
 
@@ -166,6 +173,37 @@ def phase_build():
     RESULTS["build_s"] = secs
     RESULTS["build_report"] = report
     emit({"phase": "build", "sources": _build.sources(), "seconds": round(secs, 2)})
+    RESULTS["flash_fwd_build"] = fwd = flash_fwd_resources(_build)
+    emit({"phase": "build_flash_fwd", **fwd})
+    check(fwd["sass"].get("HGMMA", 0) > 0 or fwd["sass"] == {},
+          f"the flash forward library holds no HGMMA: {fwd['sass']}")
+
+
+def flash_fwd_resources(_build) -> dict:
+    """The bf16 flash-forward kernels' registers a thread at launch, dynamic
+    shared memory and threads per CTA (from the library), and the counts of
+    wgmma (HGMMA) and TMA-load (UTMALDG) instructions in its SASS
+    (`cuobjdump -sass`, where the toolkit has it; else {})."""
+    import ctypes
+    import shutil
+
+    lib = _build.load("flash_attention_fwd")
+    res = {}
+    for d in (16, 32, 64, 512):
+        regs, smem, threads = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+        err = lib.flash_attention_fwd_info(d, ctypes.byref(regs), ctypes.byref(smem),
+                                           ctypes.byref(threads))
+        check(err == 0, f"flash_attention_fwd_info({d}) failed: CUDA error {err}")
+        res[f"d{d}"] = {"registers_at_launch": regs.value, "dynamic_smem_bytes": smem.value,
+                        "threads": threads.value}
+    cuobjdump = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    sass = {}
+    if os.path.exists(cuobjdump):
+        out = subprocess.run([cuobjdump, "-sass", str(_build._target("flash_attention_fwd"))],
+                             capture_output=True, text=True, timeout=120).stdout
+        sass = {op: len(re.findall(rf"\b{op}\b", out)) for op in ("HGMMA", "UTMALDG", "HMMA")}
+    return {"kernels": res, "sass": sass}
 
 
 def _attn_bound_ms(b, h, sq, skv_valid, skv, d, elt):
@@ -242,18 +280,23 @@ def phase_kernel():
             else:
                 ok = max_err <= TOL["bf16_max"] and mean_err <= TOL["bf16_mean"]
             ok = ok and lse_err <= TOL["lse"]
-            ms = cuda_ms(lambda: flash_attention_lse(q, k, v, kv_mask=mask))
+            # ten calls between events: a single call's time would carry the
+            # wrapper's host time (~0.1 ms), as large as the small shapes'
+            ms = cuda_ms(lambda: flash_attention_lse(q, k, v, kv_mask=mask), inner=10)
             plain_ms = cuda_ms(lambda: flash_attention_reference(
                 q, k, v, scale=d ** -0.5, kv_mask=mask), reps=3, warmup=1)
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             am = None if mask is None else mask[:, None, None, :]
-            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am))
+            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am),
+                             inner=10)
             bound_ms, bound_by = _attn_bound_ms(b, h, sq, skv_valid, skv, d, q.element_size())
+            tflops = 4.0 * b * h * sq * skv_valid * d / (ms * 1e-3) / 1e12
             row = {"shape": label, "dtype": str(dt).replace("torch.", ""), "B": b, "H": h,
                    "Sq": sq, "Skv": skv, "d": d, "mask": mk, "max_abs_err": max_err,
                    "mean_abs_err": mean_err, "lse_max_abs_err": lse_err, "ms": ms,
                    "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
-                   "bound_by": bound_by, "ok": ok}
+                   "bound_by": bound_by, "tflops_valid_keys": tflops,
+                   "share_of_bound": bound_ms / ms, "ok": ok}
             rows.append(row)
             emit(row)
             check(ok, f"kernel disagrees with the plain version at {label} {dt}: "
@@ -1652,6 +1695,11 @@ def kernel_record(rows, bwd_rows, norm_rows, fused_rows, down_rows, episode_laun
     src = "diffews_tpu_torch/ops/csrc/"
     fwd = {"name": "flash_attention_fwd", "route": "cuda", "source": src + "flash_attention_fwd.cu",
            "replaces": "diffews_tpu/ops/flash_attention.py:73",
+           "design": "bf16: warp-specialised (a TMA producer warp, two wgmma consumer "
+                     "warpgroups, setmaxnreg); d <= 64: 128x128 tiles in a 3-stage "
+                     "mbarrier ring, P from registers; d = 512: 64x64 tiles, K and V "
+                     "staged apart, O's dims split over the warpgroups; KV tiles with "
+                     "no valid key skipped; f32: FMA kernel",
            "launches": train_launches["flash_attention_fwd"],
            "launches_by_path": by_path("flash_attention_fwd"),
            "max_abs_err": max(r["max_abs_err"] for r in rows), "ms": main["ms"],

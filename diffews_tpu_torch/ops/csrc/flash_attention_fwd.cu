@@ -16,15 +16,17 @@
 // the online-softmax state (running max m, sum l, f32 accumulator) in
 // registers.  Three kernels share that shape:
 //
-//  - flash_fwd_mma_kernel, bf16 with d <= 64 (every UNet site): four warps
-//    of 16 query rows each; per 64-key tile, S = Q K^T and O += P V run on
-//    the tensor cores (mma.sync m16n8k16, f32 accumulate).  P is rounded
-//    to bf16 for P V, as the TPU kernel does (AV_BF16); l sums the f32 P.
-//    K and V tiles sit in shared memory with padded rows (no bank
-//    conflicts); V's fragments come through ldmatrix.trans.
-//  - flash_fwd_mma_wide_kernel, bf16 with d = 512 (the VAE mid block): the
-//    same arithmetic, with eight warps sharing a 64-row q-tile because one
-//    warp cannot hold 16 rows x 512 dims of O (comment at the kernel).
+//  - flash_fwd_wgmma_kernel, bf16 with d <= 64 (every UNet site): warp-
+//    specialised for Hopper.  A producer warp streams 128-key K and V
+//    tiles by TMA into a 3-stage ring guarded by full/empty mbarriers and
+//    skips tiles whose keys are all masked; two consumer warpgroups of 64
+//    query rows each run S = Q K^T (wgmma, both operands in shared
+//    memory) and O += P V (wgmma, P from registers, V read MN-major
+//    straight from its (key, d) tile), f32 accumulate.  P is rounded to
+//    bf16 for P V, as the TPU kernel does (AV_BF16); l sums the f32 P.
+//  - flash_fwd_wgmma_wide_kernel, bf16 with d = 512 (the VAE mid block):
+//    the same pipeline with O's dims split over the two consumer
+//    warpgroups (comment at the kernel).
 //  - flash_fwd_kernel, f32 at every d: plain f32 FMAs, so f32 inputs get
 //    f32 products.  Each query row belongs to TPR consecutive lanes (TPR =
 //    1 for d <= 64, 8 for d = 512); a lane holds D/TPR dims of q and of the
@@ -37,20 +39,24 @@
 // Masked keys get exactly zero weight whatever the tile order: the kernels
 // set p = 0 for them instead of adding a large negative bias, so a tile of
 // only masked keys cannot contribute before a later tile rescales it away.
-// A row with no valid key at all writes O = 0 and LSE = -inf.
+// A row with no valid key at all writes O = 0 and LSE = -inf.  Keys at
+// index >= Skv (TMA zero-fills them, so their scores are 0, not -inf) are
+// masked by index.
 //
 // What bounds it on this card: at the UNet's 64x64 level (d = 64, Sq =
 // 4096, Skv = 4096*(1+n)) the work is about 4*Sq*Skv*d FLOPs per head
 // against about 2*(Sq + 2*Skv)*d bytes, hundreds of FLOPs per byte, so it
 // is compute-bound, at the bf16 tensor-core rate (989 TFLOP/s); the VAE's
-// d = 512 more so.  The mma.sync kernels load each tile synchronously, so
-// latency is hidden only by other warps and CTAs on the SM; the FMA kernel
-// runs at the f32 rate (67 TFLOP/s) at best.  A wgmma/TMA pipeline is the
-// later step; see PERF.md.
+// d = 512 more so.  At d = 64 the softmax's one exponential per score
+// costs as much MUFU time as the score's 256 tensor-core FLOPs, so the two
+// consumer warpgroups overlap one's softmax with the other's products; the
+// TMA ring keeps loads off their path.  The FMA kernel runs at the f32
+// rate (67 TFLOP/s) at best.
 
 #include <math.h>
 
 #include "flash_common.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
@@ -195,389 +201,518 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// --- bf16 tensor-core kernels ----------------------------------------------
+// --- bf16: warp-specialised wgmma kernels -----------------------------------
+//
+// A CTA is three warpgroups: two consumers (threads 0-255) and a producer
+// (256-383, of which one warp works).  The producer loads Q once, then
+// walks the KV tiles of its batch row: it reads the tile's mask bytes,
+// turns them into one bit per key by warp votes (keys at index >= Skv
+// invalid), skips a tile with no valid key outright (no load, no product,
+// no exponential: its running max is unchanged and alpha = 1, so skipping
+// it is bit-identical to computing it), and otherwise waits for a free
+// stage of the ring, writes the tile index and its key bits beside it and
+// issues TMA loads that complete on the stage's "full" mbarrier.  After
+// the last tile it hands over a stage with tile index -1.  The consumers
+// run S = Q K^T and O += P V on wgmma (f32 accumulators in registers),
+// the online softmax on the S fragments, and release the stage on its
+// "empty" mbarrier.  setmaxnreg moves registers from the producer to the
+// consumers.
 
-// With the fragment layouts of `flash_common.cuh`, the C fragments of two
-// neighbouring 8-key score tiles are, packed to bf16, the A fragment of P
-// for the next product.
+struct __align__(16) TileMeta {
+  int tile;           // KV tile index; -1 = no more tiles
+  uint32_t bits[4];   // bit k of word w: key 32w + k of the tile is valid
+};
+
+// The producer warp: key bits of KV tile j (NW words of 32 keys).
+template <int NW>
+__device__ __forceinline__ bool tile_bits(uint32_t (&bits)[NW], const uint8_t* mrow, int j,
+                                          int Skv, int lane) {
+  uint32_t any = 0;
+#pragma unroll
+  for (int w = 0; w < NW; ++w) {
+    const int key = (j * NW + w) * 32 + lane;
+    const bool ok = key < Skv && (mrow == nullptr || mrow[key] != 0);
+    bits[w] = __ballot_sync(0xffffffffu, ok);
+    any |= bits[w];
+  }
+  return any != 0;
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// New running max (scale*log2e units) from the old one and a tile's raw
+// row max; alpha rescales the old state (1 while no key was valid).
+__device__ __forceinline__ float online_max(float& m, float raw_max, float scale_log2) {
+  const float mn = fmaxf(m, raw_max * scale_log2);
+  const float alpha = mn == -INFINITY ? 1.f : hopper::ex2(m - mn);
+  m = mn;
+  return alpha;
+}
+
+// p = 2^(s*scale_log2 - m): 0 for a masked key (s = -inf) once m is finite.
+__device__ __forceinline__ float softmax_p(float s, float m, float scale_log2) {
+  return hopper::ex2(fmaf(s, scale_log2, m == -INFINITY ? 0.f : -m));
+}
+
+// The online softmax of one tile's S fragments (rows g and g+8 of the
+// warp's 16): masks keys by the tile's bits, updates the running max m
+// and sum l, returns the rescale factors alpha of the previous O, and
+// writes P in bf16 as the A fragments of P V (k-step kk = keys 16kk..).
+template <int BKV>
+__device__ __forceinline__ void softmax_tile(float (&s)[BKV / 2], const uint32_t* bits, int t,
+                                             float scale_log2, float& m0, float& m1, float& l0,
+                                             float& l1, float& alpha0, float& alpha1,
+                                             uint32_t (&p)[BKV / 16][4]) {
+  uint32_t sh[BKV / 32];  // bit 8*(j%4) + e: key 8j + 2t + e of word j/4
+#pragma unroll
+  for (int w = 0; w < BKV / 32; ++w) sh[w] = bits[w] >> (2 * t);
+  float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < BKV / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const bool ok = (sh[j / 4] >> (8 * (j % 4) + e)) & 1u;
+      s[4 * j + e] = ok ? s[4 * j + e] : -INFINITY;
+      s[4 * j + 2 + e] = ok ? s[4 * j + 2 + e] : -INFINITY;
+      mx0 = fmaxf(mx0, s[4 * j + e]);
+      mx1 = fmaxf(mx1, s[4 * j + 2 + e]);
+    }
+  }
+  alpha0 = online_max(m0, quad_max(mx0), scale_log2);
+  alpha1 = online_max(m1, quad_max(mx1), scale_log2);
+  l0 *= alpha0;
+  l1 *= alpha1;
+#pragma unroll
+  for (int j = 0; j < BKV / 8; ++j) {
+    const float p0 = softmax_p(s[4 * j], m0, scale_log2);
+    const float p1 = softmax_p(s[4 * j + 1], m0, scale_log2);
+    const float p2 = softmax_p(s[4 * j + 2], m1, scale_log2);
+    const float p3 = softmax_p(s[4 * j + 3], m1, scale_log2);
+    l0 += p0 + p1;
+    l1 += p2 + p3;
+    p[j / 2][2 * (j % 2)] = flash::pack_bf16(p0, p1);
+    p[j / 2][2 * (j % 2) + 1] = flash::pack_bf16(p2, p3);
+  }
+}
+
+// d in {16, 32, 64}: 128 query rows per CTA (64 per consumer warpgroup),
+// 128-key tiles, a ring of STAGES K+V stages.  Rows are D*2 bytes, so one
+// row is one swizzle span (128 B at d = 64, 64 B at 32, 32 B at 16).
 template <int D>
-__global__ void __launch_bounds__(128)
-flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     const uint8_t* __restrict__ mask, __nv_bfloat16* __restrict__ o,
-                     float* __restrict__ lse, int H, int Sq, int Skv, float scale_log2) {
-  constexpr int BQ = 64;       // query rows per CTA, 16 per warp
-  constexpr int BKV = 64;      // keys per tile
-  constexpr int KS = D + 8;    // padded row stride of the K/V tiles (bf16)
-  constexpr int NKT = BKV / 8;  // 8-key score tiles
-  constexpr int NDT = D / 8;    // 8-dim output tiles
-  constexpr int KD = D / 16;    // k-steps of Q K^T
-  static_assert(D % 16 == 0 && NDT % 2 == 0, "head dim must be a multiple of 16");
+struct SmallCfg {
+  static constexpr int BQ = 128, BKV = 128, STAGES = 3;
+  static constexpr int SPAN = D * 2;
+  static constexpr int Q_BYTES = BQ * SPAN;
+  static constexpr int KV_BYTES = BKV * SPAN;  // one K or one V tile
+  static constexpr int META_OFF = Q_BYTES + 2 * STAGES * KV_BYTES;
+  static constexpr int BAR_OFF = META_OFF + STAGES * (int)sizeof(TileMeta);
+  static constexpr int SMEM = BAR_OFF + (2 * STAGES + 1) * 8 + 1024;  // + alignment slack
+};
 
-  __shared__ __align__(16) __nv_bfloat16 ks[BKV * KS];
-  __shared__ __align__(16) __nv_bfloat16 vs[BKV * KS];
-  __shared__ float kbias[BKV];  // 0 or -inf
+template <int D>
+__global__ void __launch_bounds__(384, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const uint8_t* __restrict__ mask, __nv_bfloat16* __restrict__ o,
+                       float* __restrict__ lse, int H, int Sq, int Skv, float scale_log2) {
+  using namespace hopper;
+  using C = SmallCfg<D>;
+  constexpr int SPAN = C::SPAN, BKV = C::BKV, STAGES = C::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* qs = base;
+  uint8_t* ks = qs + C::Q_BYTES;                 // [STAGES][BKV rows]
+  uint8_t* vs = ks + STAGES * C::KV_BYTES;       // [STAGES][BKV rows]
+  TileMeta* meta = reinterpret_cast<TileMeta*>(base + C::META_OFF);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + C::BAR_OFF);
+  uint64_t* empty = full + STAGES;
+  uint64_t* qbar = empty + STAGES;
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
+  const int tid = threadIdx.x, lane = tid % 32;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int r0 = blockIdx.x * BQ + warp * 16 + g, r1 = r0 + 8;
-  const size_t row_stride = (size_t)H * D;  // elements between sequence positions
-  const __nv_bfloat16* qb = q + (size_t)b * Sq * row_stride + (size_t)h * D;
-  const __nv_bfloat16* kb = k + (size_t)b * Skv * row_stride + (size_t)h * D;
-  const __nv_bfloat16* vb = v + (size_t)b * Skv * row_stride + (size_t)h * D;
-
-  uint32_t qa[KD][4];
-#pragma unroll
-  for (int kd = 0; kd < KD; ++kd) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = (i & 1) ? r1 : r0;
-      const int col = kd * 16 + (i >> 1) * 8 + 2 * t;
-      qa[kd][i] = row < Sq
-          ? *reinterpret_cast<const uint32_t*>(qb + (size_t)row * row_stride + col) : 0u;
+  const int q0 = blockIdx.x * C::BQ;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // lane 0 of each consumer warp
     }
+    mbar_init(qbar, 1);
+    fence_barrier_init();
   }
-  float oacc[NDT][4];
+  __syncthreads();
+
+  if (tid >= 256) {  // producer warpgroup
+    setmaxnreg_dec<40>();
+    if (tid / 32 != 8) return;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(qbar, C::Q_BYTES);
+      tma_load_4d(qs, &tq, qbar, 0, h, q0, b);
+    }
+    const uint8_t* mrow = mask == nullptr ? nullptr : mask + (size_t)b * Skv;
+    const int ntiles = (Skv + BKV - 1) / BKV;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int j = 0; j < ntiles; ++j) {
+      uint32_t bits[4];
+      if (!tile_bits<4>(bits, mrow, j, Skv, lane)) continue;  // every key masked
+      mbar_wait(&empty[stage], phase ^ 1);
+      if (lane == 0) {
+        meta[stage].tile = j;
 #pragma unroll
-  for (int n = 0; n < NDT; ++n) oacc[n][0] = oacc[n][1] = oacc[n][2] = oacc[n][3] = 0.f;
-  float m0 = -INFINITY, m1 = -INFINITY;  // running max of rows r0, r1 (log2 units)
+        for (int w = 0; w < 4; ++w) meta[stage].bits[w] = bits[w];
+        mbar_arrive_expect_tx(&full[stage], 2 * C::KV_BYTES);
+        tma_load_4d(ks + stage * C::KV_BYTES, &tk, &full[stage], 0, h, j * BKV, b);
+        tma_load_4d(vs + stage * C::KV_BYTES, &tv, &full[stage], 0, h, j * BKV, b);
+      }
+      __syncwarp();
+      if (++stage == STAGES) { stage = 0; phase ^= 1; }
+    }
+    mbar_wait(&empty[stage], phase ^ 1);
+    if (lane == 0) {
+      meta[stage].tile = -1;
+      mbar_arrive(&full[stage]);
+    }
+    return;
+  }
+
+  // consumer warpgroup c: query rows q0 + 64c ..
+  setmaxnreg_inc<232>();
+  const int c = tid / 128, warp = (tid % 128) / 32, g = lane / 4, t = lane % 4;
+  const uint32_t q_addr = smem_addr(qs + c * 64 * SPAN);
+  float acc[D / 2];  // O, rows 16*warp + g (+8), dims 8j + 2t (+1)
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY;  // running max, scale*log2e units
   float l0 = 0.f, l1 = 0.f;              // this lane's part of the running sums
+  mbar_wait(qbar, 0);
 
-  for (int kv0 = 0; kv0 < Skv; kv0 += BKV) {
-    __syncthreads();  // the previous tile is consumed
-    constexpr int CH = D / 8;  // 16-byte chunks per key row
-    for (int c = tid; c < BKV * CH; c += 128) {
-      const int j = c / CH, dd = (c % CH) * 8;
-      const int key = kv0 + j;
-      uint4 kx = make_uint4(0u, 0u, 0u, 0u), vx = kx;
-      if (key < Skv) {
-        kx = *reinterpret_cast<const uint4*>(kb + (size_t)key * row_stride + dd);
-        vx = *reinterpret_cast<const uint4*>(vb + (size_t)key * row_stride + dd);
-      }
-      *reinterpret_cast<uint4*>(ks + j * KS + dd) = kx;
-      *reinterpret_cast<uint4*>(vs + j * KS + dd) = vx;
+  // One tile at a time: S, softmax, P V; the other consumer warpgroup's
+  // products overlap this one's softmax where the two drift apart.
+  // (Measured slower, PERF.md: ping-pong turns between the two, and S of
+  // tile i+1 in flight beside P V of tile i.)
+  int stage = 0;
+  uint32_t phase = 0;
+  for (;;) {
+    mbar_wait(&full[stage], phase);
+    if (meta[stage].tile < 0) break;
+    uint32_t bits[4];  // read before the product: off the softmax's path
+#pragma unroll
+    for (int w = 0; w < 4; ++w) bits[w] = meta[stage].bits[w];
+    const uint32_t k_addr = smem_addr(ks + stage * C::KV_BYTES);
+    float s[BKV / 2];  // S, rows as acc, keys 8j + 2t (+1)
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<BKV, 0>(s, make_desc<SPAN>(q_addr + kk * 32), make_desc<SPAN>(k_addr + kk * 32),
+                       kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(s);
+    float alpha0, alpha1;
+    uint32_t p[BKV / 16][4];  // P in bf16: the A fragments of P V
+    softmax_tile<BKV>(s, bits, t, scale_log2, m0, m1, l0, l1, alpha0, alpha1, p);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      acc[4 * j] *= alpha0; acc[4 * j + 1] *= alpha0;
+      acc[4 * j + 2] *= alpha1; acc[4 * j + 3] *= alpha1;
     }
-    for (int j = tid; j < BKV; j += 128) {
-      const int key = kv0 + j;
-      const bool ok = key < Skv && (mask == nullptr || mask[(size_t)b * Skv + key] != 0);
-      kbias[j] = ok ? 0.f : -INFINITY;
-    }
-    __syncthreads();
-
-    float s[NKT][4];
+    wgmma_fence();
+    const uint32_t v_addr = smem_addr(vs + stage * C::KV_BYTES);
 #pragma unroll
-    for (int n = 0; n < NKT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int kd = 0; kd < KD; ++kd) {
-#pragma unroll
-      for (int n = 0; n < NKT; ++n) {
-        const __nv_bfloat16* kp = ks + (n * 8 + g) * KS + kd * 16 + 2 * t;
-        mma_bf16(s[n], qa[kd], *reinterpret_cast<const uint32_t*>(kp),
-                 *reinterpret_cast<const uint32_t*>(kp + 8));
-      }
-    }
-
-    float mx0 = m0, mx1 = m1;
-#pragma unroll
-    for (int n = 0; n < NKT; ++n) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float bias = kbias[n * 8 + 2 * t + e];
-        s[n][e] = fmaf(s[n][e], scale_log2, bias);
-        s[n][2 + e] = fmaf(s[n][2 + e], scale_log2, bias);
-        mx0 = fmaxf(mx0, s[n][e]);
-        mx1 = fmaxf(mx1, s[n][2 + e]);
-      }
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {  // the 4 lanes of a row
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-    }
-    // mx == -inf: no valid key yet in this row, nothing to rescale
-    const float alpha0 = (mx0 == -INFINITY) ? 1.f : exp2f(m0 - mx0);
-    const float alpha1 = (mx1 == -INFINITY) ? 1.f : exp2f(m1 - mx1);
-    m0 = mx0;
-    m1 = mx1;
-    l0 *= alpha0;
-    l1 *= alpha1;
-#pragma unroll
-    for (int n = 0; n < NDT; ++n) {
-      oacc[n][0] *= alpha0; oacc[n][1] *= alpha0;
-      oacc[n][2] *= alpha1; oacc[n][3] *= alpha1;
-    }
-#pragma unroll
-    for (int n = 0; n < NKT; ++n) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        s[n][e] = (s[n][e] == -INFINITY) ? 0.f : exp2f(s[n][e] - mx0);
-        s[n][2 + e] = (s[n][2 + e] == -INFINITY) ? 0.f : exp2f(s[n][2 + e] - mx1);
-        l0 += s[n][e];
-        l1 += s[n][2 + e];
-      }
-    }
-
-#pragma unroll
-    for (int kk = 0; kk < BKV / 16; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      // ldmatrix.x4.trans: lanes 8i..8i+7 address the rows of 8x8 matrix i,
-      // i = (keys +8 if odd) + (dims +8 if i >= 2); lane gets b0/b1 of two
-      // neighbouring 8-dim output tiles
-      const int key = kk * 16 + (lane & 8) + (lane & 7);
-#pragma unroll
-      for (int n = 0; n < NDT; n += 2) {
-        uint32_t vf[4];
-        ldmatrix_x4_trans(vf, vs + key * KS + (n + (lane >> 4)) * 8);
-        mma_bf16(oacc[n], pa, vf[0], vf[1]);
-        mma_bf16(oacc[n + 1], pa, vf[2], vf[3]);
-      }
-    }
+    for (int kk = 0; kk < BKV / 16; ++kk)
+      wgmma_rs<D>(acc, p[kk], make_desc<SPAN>(v_addr + kk * 16 * SPAN), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[stage]);
+    if (++stage == STAGES) { stage = 0; phase ^= 1; }
   }
 
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-  }
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    const int row = half ? r1 : r0;
-    const float l = half ? l1 : l0, m = half ? m1 : m0;
+    const int row = q0 + 64 * c + 16 * warp + g + 8 * half;
     if (row >= Sq) continue;
+    const float l = half ? l1 : l0, m = half ? m1 : m0;
     const float inv = l > 0.f ? 1.f / l : 0.f;
-    __nv_bfloat16* orow = o + ((size_t)b * Sq + row) * row_stride + (size_t)h * D;
+    __nv_bfloat16* orow = o + (((size_t)b * Sq + row) * H + h) * D;
 #pragma unroll
-    for (int n = 0; n < NDT; ++n) {
-      *reinterpret_cast<uint32_t*>(orow + n * 8 + 2 * t) =
-          pack_bf16(oacc[n][2 * half] * inv, oacc[n][2 * half + 1] * inv);
-    }
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * t) =
+          flash::pack_bf16(acc[4 * j + 2 * half] * inv, acc[4 * j + 2 * half + 1] * inv);
     if (t == 0)
       lse[((size_t)b * Sq + row) * H + h] = l > 0.f ? (m + log2f(l)) * kLn2 : -INFINITY;
   }
 }
 
-template <int D>
-cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* mask,
-                       void* o, float* lse, int B, int H, int Sq, int Skv,
-                       float scale, cudaStream_t stream) {
-  const dim3 grid((Sq + 63) / 64, B * H);
-  flash_fwd_mma_kernel<D><<<grid, 128, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const uint8_t*>(mask),
-      static_cast<__nv_bfloat16*>(o), lse, H, Sq, Skv, scale * kLog2e);
-  return cudaGetLastError();
-}
+// d = 512 (the VAE mid block): 64 query rows per CTA, shared by both
+// consumer warpgroups, and 64-key tiles.  A 64 x 512 f32 O is 256
+// registers a thread in one warpgroup, so warpgroup c keeps O's dims
+// 256c..256c+255 (128 registers).  S is split by keys: c computes keys
+// 32c..32c+31 of each tile over all 512 dims; the two exchange row maxima
+// through shared memory, so both keep the same running max, and write
+// their halves of P (bf16) into one shared tile, which each reads whole
+// for P V.  Named barriers order the exchange (ids 1 and 2, 256 threads).
+// Q (64 KB) and one tile each of K and V (64 KB each) fill 200 KB: a ring
+// of two K+V stages does not fit in 227 KB, so K and V are staged
+// separately, one buffer each, with their own full/empty barriers: K of
+// tile j+1 loads during softmax and P V of tile j, V of tile j+1 during
+// S of tile j+1.  Every tile is loaded as eight 64-dim boxes (one
+// 128-byte swizzle span each) into eight 64-row sub-tiles.
+struct WideCfg {
+  static constexpr int D = 512, BQ = 64, BKV = 64, SUB = 64, NSUB = D / SUB;
+  static constexpr int SUB_BYTES = 64 * 128;         // one 64-row, 64-dim sub-tile
+  static constexpr int TILE_BYTES = NSUB * SUB_BYTES;  // Q, K or V: 64 KB
+  static constexpr int P_OFF = 3 * TILE_BYTES;       // P: 64 x 64 bf16, 128-byte swizzle
+  static constexpr int RED_OFF = P_OFF + BQ * 128;   // [2][64] f32 row partials
+  static constexpr int META_OFF = RED_OFF + 2 * BQ * 4;
+  static constexpr int BAR_OFF = META_OFF + (int)sizeof(TileMeta);
+  static constexpr int SMEM = BAR_OFF + 5 * 8 + 1024;
+};
 
-// bf16, d = 512 (the VAE mid attention).  A warp cannot hold 16 rows x 512
-// dims of O (256 registers a lane), so eight warps share a 64-row q-tile:
-// warp w owns rows 16*(w%4).. and, for S, keys 32*(w/4).. of each 64-key
-// tile, for O, dims 256*(w/4)..  The two warps of a row block swap their
-// partial row maxima through shared memory, so both keep the same running
-// max; P goes through shared memory to the warp that owns the other dims.
-// Q, K and V tiles (64 x 512 bf16 each) sit in 205 KB of dynamic shared
-// memory: one CTA per SM.
-template <int D>
-__global__ void __launch_bounds__(256, 1)
-flash_fwd_mma_wide_kernel(const __nv_bfloat16* __restrict__ q,
-                          const __nv_bfloat16* __restrict__ k,
-                          const __nv_bfloat16* __restrict__ v,
-                          const uint8_t* __restrict__ mask, __nv_bfloat16* __restrict__ o,
-                          float* __restrict__ lse, int H, int Sq, int Skv, float scale_log2) {
-  constexpr int BQ = 64, BKV = 64, NT = 256;
-  constexpr int KS = D + 8;       // padded row stride of the Q/K/V tiles (bf16)
-  constexpr int PS = BKV + 8;     // padded row stride of the P tile
-  constexpr int NKT = BKV / 16;   // 8-key score tiles of a warp (32 keys)
-  constexpr int NDT = D / 16;     // 8-dim output tiles of a warp (D/2 dims)
-  constexpr int KD = D / 16;      // k-steps of Q K^T
-  constexpr int CH = D / 8;       // 16-byte chunks per row
-  static_assert(D % 32 == 0, "head dim must be a multiple of 32");
+__global__ void __launch_bounds__(384, 1)
+flash_fwd_wgmma_wide_kernel(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            const uint8_t* __restrict__ mask, __nv_bfloat16* __restrict__ o,
+                            float* __restrict__ lse, int H, int Sq, int Skv, float scale_log2) {
+  using namespace hopper;
+  using C = WideCfg;
+  constexpr int D = C::D;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* qs = base;
+  uint8_t* ks = qs + C::TILE_BYTES;
+  uint8_t* vs = ks + C::TILE_BYTES;
+  uint8_t* ps = base + C::P_OFF;
+  float* red = reinterpret_cast<float*>(base + C::RED_OFF);
+  TileMeta* meta = reinterpret_cast<TileMeta*>(base + C::META_OFF);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(base + C::BAR_OFF);
+  uint64_t *qbar = bars, *kfull = bars + 1, *kempty = bars + 2, *vfull = bars + 3,
+           *vempty = bars + 4;
 
-  extern __shared__ uint4 smem_w[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_w);
-  __nv_bfloat16* ks = qs + BQ * KS;
-  __nv_bfloat16* vs = ks + BKV * KS;
-  __nv_bfloat16* ps = vs + BKV * KS;
-  float* part = reinterpret_cast<float*>(ps + BQ * PS);  // [2][BQ] row partials
-  float* kbias = part + 2 * BQ;                          // [BKV]: 0 or -inf
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int rb = (warp & 3) * 16, hf = warp >> 2;
+  const int tid = threadIdx.x, lane = tid % 32;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * BQ;
-  const size_t row_stride = (size_t)H * D;
-  const __nv_bfloat16* qb = q + (size_t)b * Sq * row_stride + (size_t)h * D;
-  const __nv_bfloat16* kb = k + (size_t)b * Skv * row_stride + (size_t)h * D;
-  const __nv_bfloat16* vb = v + (size_t)b * Skv * row_stride + (size_t)h * D;
-
-  for (int c = tid; c < BQ * CH; c += NT) {
-    const int i = c / CH, dd = (c % CH) * 8;
-    uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (q0 + i < Sq) x = *reinterpret_cast<const uint4*>(qb + (size_t)(q0 + i) * row_stride + dd);
-    *reinterpret_cast<uint4*>(qs + i * KS + dd) = x;
-  }
-
-  float oacc[NDT][4];
-#pragma unroll
-  for (int n = 0; n < NDT; ++n) oacc[n][0] = oacc[n][1] = oacc[n][2] = oacc[n][3] = 0.f;
-  float m0 = -INFINITY, m1 = -INFINITY;  // running max of rows rb+g, rb+g+8
-  float l0 = 0.f, l1 = 0.f;              // this lane's part of the running sums
-  // ldmatrix.x4 (A operand): lanes 8i..8i+7 address rows of 8x8 matrix i =
-  // (rows +8 if i odd) + (cols +8 if i >= 2)
-  const int a_row = rb + (lane & 7) + (lane & 8);
-  const int a_col = (lane >> 4) * 8;
-  const int v_key = (lane & 8) + (lane & 7);
-
-  for (int kv0 = 0; kv0 < Skv; kv0 += BKV) {
-    __syncthreads();  // the previous tile (K, V, P, partials) is consumed
-    for (int c = tid; c < BKV * CH; c += NT) {
-      const int j = c / CH, dd = (c % CH) * 8;
-      const int key = kv0 + j;
-      uint4 kx = make_uint4(0u, 0u, 0u, 0u), vx = kx;
-      if (key < Skv) {
-        kx = *reinterpret_cast<const uint4*>(kb + (size_t)key * row_stride + dd);
-        vx = *reinterpret_cast<const uint4*>(vb + (size_t)key * row_stride + dd);
-      }
-      *reinterpret_cast<uint4*>(ks + j * KS + dd) = kx;
-      *reinterpret_cast<uint4*>(vs + j * KS + dd) = vx;
-    }
-    for (int j = tid; j < BKV; j += NT) {
-      const int key = kv0 + j;
-      const bool ok = key < Skv && (mask == nullptr || mask[(size_t)b * Skv + key] != 0);
-      kbias[j] = ok ? 0.f : -INFINITY;
-    }
-    __syncthreads();
-
-    // S for rows rb.., keys 32*hf..
-    float s[NKT][4];
-#pragma unroll
-    for (int n = 0; n < NKT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll 4
-    for (int kd = 0; kd < KD; ++kd) {
-      uint32_t qa[4];
-      ldmatrix_x4(qa, qs + a_row * KS + kd * 16 + a_col);
-#pragma unroll
-      for (int n = 0; n < NKT; ++n) {
-        const __nv_bfloat16* kp = ks + (hf * 32 + n * 8 + g) * KS + kd * 16 + 2 * t;
-        mma_bf16(s[n], qa, *reinterpret_cast<const uint32_t*>(kp),
-                 *reinterpret_cast<const uint32_t*>(kp + 8));
-      }
-    }
-    float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-    for (int n = 0; n < NKT; ++n) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float bias = kbias[hf * 32 + n * 8 + 2 * t + e];
-        s[n][e] = fmaf(s[n][e], scale_log2, bias);
-        s[n][2 + e] = fmaf(s[n][2 + e], scale_log2, bias);
-        mx0 = fmaxf(mx0, s[n][e]);
-        mx1 = fmaxf(mx1, s[n][2 + e]);
-      }
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-    }
-    if (t == 0) {
-      part[hf * BQ + rb + g] = mx0;
-      part[hf * BQ + rb + g + 8] = mx1;
-    }
-    __syncthreads();
-    // the same expression in both warps of a row block: the same running max
-    mx0 = fmaxf(m0, fmaxf(part[rb + g], part[BQ + rb + g]));
-    mx1 = fmaxf(m1, fmaxf(part[rb + g + 8], part[BQ + rb + g + 8]));
-    const float alpha0 = (mx0 == -INFINITY) ? 1.f : exp2f(m0 - mx0);
-    const float alpha1 = (mx1 == -INFINITY) ? 1.f : exp2f(m1 - mx1);
-    m0 = mx0;
-    m1 = mx1;
-    l0 *= alpha0;
-    l1 *= alpha1;
-#pragma unroll
-    for (int n = 0; n < NDT; ++n) {
-      oacc[n][0] *= alpha0; oacc[n][1] *= alpha0;
-      oacc[n][2] *= alpha1; oacc[n][3] *= alpha1;
-    }
-#pragma unroll
-    for (int n = 0; n < NKT; ++n) {
-      const float p0 = (s[n][0] == -INFINITY) ? 0.f : exp2f(s[n][0] - mx0);
-      const float p1 = (s[n][1] == -INFINITY) ? 0.f : exp2f(s[n][1] - mx0);
-      const float p2 = (s[n][2] == -INFINITY) ? 0.f : exp2f(s[n][2] - mx1);
-      const float p3 = (s[n][3] == -INFINITY) ? 0.f : exp2f(s[n][3] - mx1);
-      l0 += p0 + p1;
-      l1 += p2 + p3;
-      const int col = hf * 32 + n * 8 + 2 * t;
-      *reinterpret_cast<uint32_t*>(ps + (rb + g) * PS + col) = pack_bf16(p0, p1);
-      *reinterpret_cast<uint32_t*>(ps + (rb + g + 8) * PS + col) = pack_bf16(p2, p3);
-    }
-    __syncthreads();  // P of both key halves is in place
-
-    // O[rows rb.., dims (D/2)*hf..] += P V
-#pragma unroll
-    for (int kk = 0; kk < BKV / 16; ++kk) {
-      uint32_t pa[4];
-      ldmatrix_x4(pa, ps + a_row * PS + kk * 16 + a_col);
-#pragma unroll
-      for (int n = 0; n < NDT; n += 2) {
-        uint32_t vf[4];
-        ldmatrix_x4_trans(vf, vs + (kk * 16 + v_key) * KS + hf * (D / 2) + (n + (lane >> 4)) * 8);
-        mma_bf16(oacc[n], pa, vf[0], vf[1]);
-        mma_bf16(oacc[n + 1], pa, vf[2], vf[3]);
-      }
-    }
-  }
-
-  // full row sums: the quad's lanes, then the other key half's warp (the
-  // last tile's reads of the max partials ended before its P barrier)
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-  }
-  if (t == 0) {
-    part[hf * BQ + rb + g] = l0;
-    part[hf * BQ + rb + g + 8] = l1;
+  const int q0 = blockIdx.x * C::BQ;
+  if (tid == 0) {
+    mbar_init(qbar, 1);
+    mbar_init(kfull, 1);
+    mbar_init(kempty, 8);
+    mbar_init(vfull, 1);
+    mbar_init(vempty, 8);
+    fence_barrier_init();
   }
   __syncthreads();
+
+  if (tid >= 256) {  // producer warpgroup
+    setmaxnreg_dec<40>();
+    if (tid / 32 != 8) return;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(qbar, C::TILE_BYTES);
+      for (int i = 0; i < C::NSUB; ++i)
+        tma_load_4d(qs + i * C::SUB_BYTES, &tq, qbar, i * C::SUB, h, q0, b);
+    }
+    const uint8_t* mrow = mask == nullptr ? nullptr : mask + (size_t)b * Skv;
+    const int ntiles = (Skv + C::BKV - 1) / C::BKV;
+    uint32_t phase = 0;
+    for (int j = 0; j < ntiles; ++j) {
+      uint32_t bits[2];
+      if (!tile_bits<2>(bits, mrow, j, Skv, lane)) continue;  // every key masked
+      mbar_wait(kempty, phase ^ 1);
+      if (lane == 0) {
+        meta->tile = j;
+        meta->bits[0] = bits[0];
+        meta->bits[1] = bits[1];
+        mbar_arrive_expect_tx(kfull, C::TILE_BYTES);
+        for (int i = 0; i < C::NSUB; ++i)
+          tma_load_4d(ks + i * C::SUB_BYTES, &tk, kfull, i * C::SUB, h, j * C::BKV, b);
+      }
+      __syncwarp();
+      mbar_wait(vempty, phase ^ 1);
+      if (lane == 0) {
+        mbar_arrive_expect_tx(vfull, C::TILE_BYTES);
+        for (int i = 0; i < C::NSUB; ++i)
+          tma_load_4d(vs + i * C::SUB_BYTES, &tv, vfull, i * C::SUB, h, j * C::BKV, b);
+      }
+      __syncwarp();
+      phase ^= 1;
+    }
+    mbar_wait(kempty, phase ^ 1);
+    if (lane == 0) {
+      meta->tile = -1;
+      mbar_arrive(kfull);
+    }
+    return;
+  }
+
+  // consumer warpgroup c: keys 32c.. of S, dims 256c.. of O, all 64 rows
+  setmaxnreg_inc<232>();
+  const int c = tid / 128, warp = (tid % 128) / 32, g = lane / 4, t = lane % 4;
+  const int r0 = 16 * warp + g;  // this lane's rows r0, r0 + 8
+  const uint32_t q_addr = smem_addr(qs), k_addr = smem_addr(ks) + c * 32 * 128;
+  const uint32_t v_addr = smem_addr(vs) + c * 4 * C::SUB_BYTES, p_addr = smem_addr(ps);
+  float acc[128];  // O, rows r0 (+8), dims 256c + 8j + 2t (+1)
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY;
+  float l0 = 0.f, l1 = 0.f;  // this lane's part of the sums over keys 32c..
+  mbar_wait(qbar, 0);
+
+  uint32_t phase = 0;
+  for (;;) {
+    mbar_wait(kfull, phase);
+    if (meta->tile < 0) break;
+    const uint32_t sh = meta->bits[c] >> (2 * t);
+
+    float s[16];  // S, rows r0 (+8), keys 32c + 8j + 2t (+1)
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk / 4) * C::SUB_BYTES + (kk % 4) * 32;
+      wgmma_ss<32, 0>(s, make_desc<128>(q_addr + off), make_desc<128>(k_addr + off), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(s);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(kempty);
+
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool ok = (sh >> (8 * j + e)) & 1u;
+        s[4 * j + e] = ok ? s[4 * j + e] : -INFINITY;
+        s[4 * j + 2 + e] = ok ? s[4 * j + 2 + e] : -INFINITY;
+        mx0 = fmaxf(mx0, s[4 * j + e]);
+        mx1 = fmaxf(mx1, s[4 * j + 2 + e]);
+      }
+    }
+    mx0 = quad_max(mx0);
+    mx1 = quad_max(mx1);
+    if (t == 0) {
+      red[c * 64 + r0] = mx0;
+      red[c * 64 + r0 + 8] = mx1;
+    }
+    named_bar_sync(1, 256);
+    // the same expression in both warpgroups: the same running max
+    const float alpha0 = online_max(m0, fmaxf(red[r0], red[64 + r0]), scale_log2);
+    const float alpha1 = online_max(m1, fmaxf(red[r0 + 8], red[64 + r0 + 8]), scale_log2);
+    l0 *= alpha0;
+    l1 *= alpha1;
+    fence_operands(acc);
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      acc[4 * j] *= alpha0; acc[4 * j + 1] *= alpha0;
+      acc[4 * j + 2] *= alpha1; acc[4 * j + 3] *= alpha1;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float p0 = softmax_p(s[4 * j], m0, scale_log2);
+      const float p1 = softmax_p(s[4 * j + 1], m0, scale_log2);
+      const float p2 = softmax_p(s[4 * j + 2], m1, scale_log2);
+      const float p3 = softmax_p(s[4 * j + 3], m1, scale_log2);
+      l0 += p0 + p1;
+      l1 += p2 + p3;
+      // P[r][key], key = 32c + 8j + 2t: 16-byte chunk (4c + j) ^ (r % 8) of row r
+      const int chunk = (4 * c + j) ^ g;
+      *reinterpret_cast<uint32_t*>(ps + r0 * 128 + chunk * 16 + 4 * t) = flash::pack_bf16(p0, p1);
+      *reinterpret_cast<uint32_t*>(ps + (r0 + 8) * 128 + chunk * 16 + 4 * t) =
+          flash::pack_bf16(p2, p3);
+    }
+    fence_proxy_async();
+    named_bar_sync(2, 256);  // both halves of P are in place
+
+    mbar_wait(vfull, phase);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < C::BKV / 16; ++kk)
+      wgmma_ss<256, 1>(acc, make_desc<128>(p_addr + kk * 32),
+                       make_desc<128>(v_addr + kk * 16 * 128, C::SUB_BYTES), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(vempty);
+    phase ^= 1;
+  }
+
+  // full row sums: the quad's lanes, then the other key half's warpgroup
+  // (its reads of the max partials ended before the last P barrier)
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  if (t == 0) {
+    red[c * 64 + r0] = l0;
+    red[c * 64 + r0 + 8] = l1;
+  }
+  named_bar_sync(1, 256);
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    const int i = rb + g + 8 * half, row = q0 + i;
+    const int i = r0 + 8 * half, row = q0 + i;
     if (row >= Sq) continue;
-    const float l = part[i] + part[BQ + i], m = half ? m1 : m0;
+    const float l = red[i] + red[64 + i], m = half ? m1 : m0;
     const float inv = l > 0.f ? 1.f / l : 0.f;
-    __nv_bfloat16* orow = o + ((size_t)b * Sq + row) * row_stride + (size_t)h * D + hf * (D / 2);
+    __nv_bfloat16* orow = o + (((size_t)b * Sq + row) * H + h) * D + 256 * c;
 #pragma unroll
-    for (int n = 0; n < NDT; ++n) {
-      *reinterpret_cast<uint32_t*>(orow + n * 8 + 2 * t) =
-          pack_bf16(oacc[n][2 * half] * inv, oacc[n][2 * half + 1] * inv);
-    }
-    if (hf == 0 && t == 0)
+    for (int j = 0; j < 32; ++j)
+      *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * t) =
+          flash::pack_bf16(acc[4 * j + 2 * half] * inv, acc[4 * j + 2 * half + 1] * inv);
+    if (c == 0 && t == 0)
       lse[((size_t)b * Sq + row) * H + h] = l > 0.f ? (m + log2f(l)) * kLn2 : -INFINITY;
   }
 }
 
-template <int D>
-cudaError_t launch_mma_wide(const void* q, const void* k, const void* v, const void* mask,
-                            void* o, float* lse, int B, int H, int Sq, int Skv,
-                            float scale, cudaStream_t stream) {
-  const size_t smem = (size_t)(64 * (D + 8) * 3 + 64 * 72) * sizeof(__nv_bfloat16)
-                      + (size_t)(2 * 64 + 64) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_mma_wide_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+template <typename Kernel>
+cudaError_t launch_tma(Kernel kernel, int smem, int box_d, int box_rows, int rows_per_cta,
+                       CUtensorMapSwizzle swizzle, const void* q, const void* k,
+                       const void* v, const void* mask, void* o, float* lse, int B, int H,
+                       int Sq, int Skv, int D, float scale, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  if (!hopper::encode_bshd_map(&tq, q, B, Sq, H, D, box_d, rows_per_cta, swizzle) ||
+      !hopper::encode_bshd_map(&tk, k, B, Skv, H, D, box_d, box_rows, swizzle) ||
+      !hopper::encode_bshd_map(&tv, v, B, Skv, H, D, box_d, box_rows, swizzle))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + 63) / 64, B * H);
-  flash_fwd_mma_wide_kernel<D><<<grid, 256, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const uint8_t*>(mask),
-      static_cast<__nv_bfloat16*>(o), lse, H, Sq, Skv, scale * kLog2e);
+  const dim3 grid((Sq + rows_per_cta - 1) / rows_per_cta, B * H);
+  kernel<<<grid, 384, smem, stream>>>(tq, tk, tv, static_cast<const uint8_t*>(mask),
+                                      static_cast<__nv_bfloat16*>(o), lse, H, Sq, Skv,
+                                      scale * kLog2e);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const void* mask,
+                         void* o, float* lse, int B, int H, int Sq, int Skv, float scale,
+                         cudaStream_t stream) {
+  using C = SmallCfg<D>;
+  return launch_tma(flash_fwd_wgmma_kernel<D>, C::SMEM, D, C::BKV, C::BQ,
+                    hopper::Swizzle<C::SPAN>::tma, q, k, v, mask, o, lse, B, H, Sq, Skv, D,
+                    scale, stream);
+}
+
+cudaError_t launch_wgmma_wide(const void* q, const void* k, const void* v, const void* mask,
+                              void* o, float* lse, int B, int H, int Sq, int Skv, float scale,
+                              cudaStream_t stream) {
+  using C = WideCfg;
+  return launch_tma(flash_fwd_wgmma_wide_kernel, C::SMEM, C::SUB, C::BKV, C::BQ,
+                    CU_TENSOR_MAP_SWIZZLE_128B, q, k, v, mask, o, lse, B, H, Sq, Skv, C::D,
+                    scale, stream);
 }
 
 template <int D, int TPR, int NT, int BK>
@@ -614,10 +749,10 @@ cudaError_t dispatch_bf16(const void* q, const void* k, const void* v, const voi
                           void* o, float* lse, int B, int H, int Sq, int Skv, int D,
                           float scale, cudaStream_t stream) {
   switch (D) {
-    case 16: return launch_mma<16>(q, k, v, mask, o, lse, B, H, Sq, Skv, scale, stream);
-    case 32: return launch_mma<32>(q, k, v, mask, o, lse, B, H, Sq, Skv, scale, stream);
-    case 64: return launch_mma<64>(q, k, v, mask, o, lse, B, H, Sq, Skv, scale, stream);
-    case 512: return launch_mma_wide<512>(q, k, v, mask, o, lse, B, H, Sq, Skv, scale, stream);
+    case 16: return launch_wgmma<16>(q, k, v, mask, o, lse, B, H, Sq, Skv, scale, stream);
+    case 32: return launch_wgmma<32>(q, k, v, mask, o, lse, B, H, Sq, Skv, scale, stream);
+    case 64: return launch_wgmma<64>(q, k, v, mask, o, lse, B, H, Sq, Skv, scale, stream);
+    case 512: return launch_wgmma_wide(q, k, v, mask, o, lse, B, H, Sq, Skv, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -640,4 +775,24 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   if (dtype == 1)
     return (int)dispatch_bf16(q, k, v, mask, o, l, B, H, Sq, Skv, D, scale, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// Resources of the bf16 kernel at head dim D: registers a thread at launch
+// (setmaxnreg then gives the producer warpgroup 40 and the consumers
+// 232), dynamic shared memory in bytes and threads per CTA.  Returns the
+// CUDA error (0 = cudaSuccess).
+extern "C" int flash_attention_fwd_info(int D, int* regs, int* smem, int* threads) {
+  cudaFuncAttributes attr;
+  cudaError_t err;
+  switch (D) {
+    case 16: err = cudaFuncGetAttributes(&attr, flash_fwd_wgmma_kernel<16>); *smem = SmallCfg<16>::SMEM; break;
+    case 32: err = cudaFuncGetAttributes(&attr, flash_fwd_wgmma_kernel<32>); *smem = SmallCfg<32>::SMEM; break;
+    case 64: err = cudaFuncGetAttributes(&attr, flash_fwd_wgmma_kernel<64>); *smem = SmallCfg<64>::SMEM; break;
+    case 512: err = cudaFuncGetAttributes(&attr, flash_fwd_wgmma_wide_kernel); *smem = WideCfg::SMEM; break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return (int)err;
+  *regs = attr.numRegs;
+  *threads = 384;
+  return 0;
 }

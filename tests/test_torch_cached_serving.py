@@ -29,6 +29,7 @@ from diffews_tpu_torch import checkpoint as TC
 from diffews_tpu_torch import configs as TCF
 from diffews_tpu_torch import pipeline as TP
 from diffews_tpu_torch.models.unet import UNet2DConditionModel
+from helpers.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CFG = UNetConfig.tiny()
 ENTRY_TOL = dict(atol=2e-5, rtol=1e-5)
@@ -227,11 +228,12 @@ class TestPipelineCachedServing:
         full = tp.predict(q, sup, m, r_threshold=0.25)
         cache = tp.precompute_supports(sup, m)
         assert cache.batch == 2 and cache.n_shots == 2 and cache.shot_mask is None
-        assert len(cache.entries) == len(jp.precompute_supports(sup, m).entries)
+        jcache = jp.precompute_supports(sup, m)
+        assert len(cache.entries) == len(jcache.entries)
         cached = tp.predict_cached(q, cache, r_threshold=0.25)
         _uint8_close(cached.seg_colored, full.seg_colored)
         assert (cached.mask != full.mask).mean() <= 0.01
-        want = jp.predict_cached(q, jp.precompute_supports(sup, m), r_threshold=0.25)
+        want = jp.predict_cached(q, jcache, r_threshold=0.25)
         _uint8_close(cached.seg_colored, want.seg_colored)
         assert (cached.mask != want.mask).mean() <= 0.01
 

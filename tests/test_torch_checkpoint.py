@@ -24,6 +24,7 @@ from diffews_tpu_torch import configs as TCF
 from diffews_tpu_torch.models.clip_text import CLIPTextModel
 from diffews_tpu_torch.models.unet import UNet2DConditionModel
 from diffews_tpu_torch.models.vae import AutoencoderKL
+from helpers.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 MODELS = {
     "unet": (JU, JCF.UNetConfig, UNet2DConditionModel, TCF.UNetConfig, "sd21"),

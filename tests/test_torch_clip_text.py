@@ -11,6 +11,7 @@ from diffews_tpu.models import clip_text as JC
 from diffews_tpu_torch.checkpoint import state_dict_from_jax
 from diffews_tpu_torch.configs import CLIPTextConfig as TCLIPTextConfig
 from diffews_tpu_torch.models import clip_text as TC
+from helpers.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module")

@@ -19,6 +19,7 @@ import torch
 
 from diffews_tpu.ops import downsample as JD
 from diffews_tpu_torch.ops import downsample as TD
+from helpers.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = dict(atol=2e-5, rtol=1e-5)
 GRAD_TOL = dict(atol=1e-4, rtol=1e-4)

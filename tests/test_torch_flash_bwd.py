@@ -21,6 +21,7 @@ from diffews_tpu.ops import attention as JA
 from diffews_tpu.ops import flash_attention as JF
 from diffews_tpu_torch.ops import attention as TA
 from diffews_tpu_torch.ops import flash_attention as TF
+from helpers.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _x(*shape, seed=0):

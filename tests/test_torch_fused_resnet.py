@@ -24,6 +24,7 @@ from diffews_tpu.ops import fused_resnet as JF
 from diffews_tpu_torch.checkpoint import state_dict_from_jax
 from diffews_tpu_torch.models import layers as TL
 from diffews_tpu_torch.ops import fused_resnet as TF
+from helpers.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = dict(atol=2e-5, rtol=1e-5)
 GRAD_TOL = dict(atol=1e-4, rtol=1e-4)

@@ -18,6 +18,7 @@ import torch
 from diffews_tpu.ops import groupnorm as JG
 from diffews_tpu_torch.models import layers as TL
 from diffews_tpu_torch.ops import groupnorm as TG
+from helpers.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = dict(atol=2e-5, rtol=1e-5)
 GRAD_TOL = dict(atol=1e-4, rtol=1e-4)

@@ -11,6 +11,7 @@ from pathlib import Path
 import jax  # noqa: F401  (the port's tests run beside the JAX package's)
 import pytest
 import torch
+from helpers.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 

@@ -14,6 +14,7 @@ from diffews_tpu.models import layers as JL
 from diffews_tpu.utils import init as JI
 from diffews_tpu_torch.checkpoint import state_dict_from_jax
 from diffews_tpu_torch.models import layers as TL
+from helpers.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

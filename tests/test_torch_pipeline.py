@@ -22,6 +22,7 @@ from diffews_tpu_torch.models import vae as TV
 from diffews_tpu_torch import checkpoint as TC
 from diffews_tpu_torch import configs as TCF
 from diffews_tpu_torch import pipeline as TP
+from helpers.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _bundles():

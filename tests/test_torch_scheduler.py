@@ -12,6 +12,7 @@ from diffews_tpu import scheduler as JS
 from diffews_tpu.configs import SchedulerConfig
 from diffews_tpu_torch import scheduler as TS
 from diffews_tpu_torch.configs import SchedulerConfig as TSchedulerConfig
+from helpers.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CONFIGS = {
     "diffews": SchedulerConfig.diffews(),

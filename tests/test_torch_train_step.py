@@ -24,6 +24,7 @@ from diffews_tpu_torch.checkpoint import state_dict_from_jax
 from diffews_tpu_torch.training import state as tstate
 from test_torch_training import (_torch_tree, _trainer_cfgs, episode_batch,  # noqa: F401
                                  models, n_images)
+from helpers.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def check_two_steps(models, gas, variant):

@@ -4,6 +4,7 @@ checks are `test_torch_train_step.check_two_steps`'s."""
 
 from test_torch_train_step import check_two_steps
 from test_torch_training import models  # noqa: F401
+from helpers.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def test_two_accumulated_train_steps_match_jax(models):

@@ -33,6 +33,7 @@ from diffews_tpu_torch.training import ema as tema
 from diffews_tpu_torch.training import lr as tlr
 from diffews_tpu_torch.training import state as tstate
 from diffews_tpu_torch.training.optim import global_norm
+from helpers.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 def _random_tree(init, cfg, seed):
     """A JAX parameter tree of `init`'s structure drawn with numpy (fan-in

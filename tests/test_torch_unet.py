@@ -13,6 +13,7 @@ from diffews_tpu.models import unet as JU
 from diffews_tpu_torch.checkpoint import state_dict_from_jax
 from diffews_tpu_torch.configs import UNetConfig as TUNetConfig
 from diffews_tpu_torch.models.unet import UNet2DConditionModel
+from helpers.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ATOL = 1e-4
 _jforward = jax.jit(JU.forward, static_argnums=(1,), static_argnames=("attn_impl",))

@@ -12,6 +12,7 @@ from diffews_tpu.models import vae as JV
 from diffews_tpu_torch.checkpoint import state_dict_from_jax
 from diffews_tpu_torch.configs import VAEConfig as TVAEConfig
 from diffews_tpu_torch.models.vae import AutoencoderKL
+from helpers.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ATOL = 1e-4
 

@@ -22,6 +22,7 @@ from diffews_tpu_torch.checkpoint import state_dict_from_jax
 from diffews_tpu_torch.configs import VAEConfig as TVAEConfig
 from diffews_tpu_torch.models import vae as TV
 from diffews_tpu_torch.ops import fused_resnet as TF
+from helpers.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = dict(atol=5e-5, rtol=1e-4)
 
