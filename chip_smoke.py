@@ -10,8 +10,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
   1. device: the card's name and power limit (`nvidia-smi`);
   2. build: compile every `diffews_tpu_torch/ops/csrc/*.cu` with nvcc (one
      process each, started together), print ptxas's registers/spills,
-     and report the bf16 flash forward's registers, shared memory and
-     its SASS's wgmma (HGMMA) and TMA (UTMALDG) instructions;
+     and report the bf16 flash forward's and backward's (dq, dkv)
+     registers, shared memory and their SASS's wgmma (HGMMA), TMA
+     (UTMALDG) and mma.sync (HMMA) instructions;
   3. kernel: the flash-attention forward kernel against its plain version
      at every shape a 512px episode gives it, in f32 (TF32 off) and bf16,
      O and LSE, with kernel / plain / `F.scaled_dot_product_attention`
@@ -20,7 +21,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
   4. bwd: the backward kernels (dq, dkv) against their plain version at
      every shape a B = 1, 1-shot, 512px training micro-step gives them,
      plus the 5-shot padded and attn-mask query shapes, f32 (TF32 off) and
-     bf16, with kernel / plain / SDPA-backward times and the bounds;
+     bf16, masked keys' dK / dV exactly zero, bf16 repeats bit-identical,
+     with dq / dkv / whole-call (δ included) / plain / SDPA-backward times
+     (the whole call and SDPA's backward also as device time alone, from
+     the profiler) and the bounds;
   5. norm: the GroupNorm kernels (stats, apply) against their plain version
      at every GroupNorm+SiLU shape of a 1-shot batch-4 512px episode
      (recorded from the episode itself), f32 (TF32 off) and bf16, with
@@ -65,7 +69,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
  12. train: the training step at the same widths (bf16 compute, f32
      masters, remat, AdamW): launches per micro-step (65 flash forward, 32
      dq, 32 dkv, 109 + 109 GroupNorm), step times at gas 1 and 4, peak
-     memory, a profile, the f32 kernel path against the dense path,
+     memory, a profile (and the micro-step's forward and backward flash
+     ms), the f32 kernel path against the dense path,
      padded-shot invariance of loss and gradients, and the attn-mask
      variant's decaying `conv_in_ref`.
 
@@ -173,34 +178,46 @@ def phase_build():
     RESULTS["build_s"] = secs
     RESULTS["build_report"] = report
     emit({"phase": "build", "sources": _build.sources(), "seconds": round(secs, 2)})
-    RESULTS["flash_fwd_build"] = fwd = flash_fwd_resources(_build)
+    RESULTS["flash_fwd_build"] = fwd = flash_resources(_build, "flash_attention_fwd")
     emit({"phase": "build_flash_fwd", **fwd})
     check(fwd["sass"].get("HGMMA", 0) > 0 or fwd["sass"] == {},
           f"the flash forward library holds no HGMMA: {fwd['sass']}")
+    RESULTS["flash_bwd_build"] = bwd = flash_resources(_build, "flash_attention_bwd")
+    emit({"phase": "build_flash_bwd", **bwd})
+    check(bwd["sass"] == {} or (bwd["sass"]["HGMMA"] > 0 and bwd["sass"]["UTMALDG"] > 0
+                                and bwd["sass"]["HMMA"] == 0),
+          f"the flash backward library must hold HGMMA and UTMALDG and no HMMA: {bwd['sass']}")
 
 
-def flash_fwd_resources(_build) -> dict:
-    """The bf16 flash-forward kernels' registers a thread at launch, dynamic
-    shared memory and threads per CTA (from the library), and the counts of
-    wgmma (HGMMA) and TMA-load (UTMALDG) instructions in its SASS
-    (`cuobjdump -sass`, where the toolkit has it; else {})."""
+def flash_resources(_build, name: str) -> dict:
+    """The bf16 flash kernels' registers a thread at launch, dynamic shared
+    memory and threads per CTA (from the library: `flash_attention_fwd_info`
+    at each head dim, `flash_attention_bwd_info` for dq and dkv), and the
+    counts of wgmma (HGMMA), TMA-load (UTMALDG) and mma.sync (HMMA)
+    instructions in its SASS (`cuobjdump -sass`, where the toolkit has it;
+    else {})."""
     import ctypes
     import shutil
 
-    lib = _build.load("flash_attention_fwd")
+    lib = _build.load(name)
     res = {}
-    for d in (16, 32, 64, 512):
+    if name == "flash_attention_fwd":
+        calls = {f"d{d}": (lambda *r, d=d: lib.flash_attention_fwd_info(d, *r))
+                 for d in (16, 32, 64, 512)}
+    else:
+        calls = {f"{kind}_d{d}": (lambda *r, d=d, i=i: lib.flash_attention_bwd_info(d, i, *r))
+                 for i, kind in enumerate(("dq", "dkv")) for d in (16, 32, 64)}
+    for key, call in calls.items():
         regs, smem, threads = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-        err = lib.flash_attention_fwd_info(d, ctypes.byref(regs), ctypes.byref(smem),
-                                           ctypes.byref(threads))
-        check(err == 0, f"flash_attention_fwd_info({d}) failed: CUDA error {err}")
-        res[f"d{d}"] = {"registers_at_launch": regs.value, "dynamic_smem_bytes": smem.value,
-                        "threads": threads.value}
+        err = call(ctypes.byref(regs), ctypes.byref(smem), ctypes.byref(threads))
+        check(err == 0, f"{name} info ({key}) failed: CUDA error {err}")
+        res[key] = {"registers_at_launch": regs.value, "dynamic_smem_bytes": smem.value,
+                    "threads": threads.value}
     cuobjdump = shutil.which("cuobjdump") or os.path.join(
         os.path.dirname(_build.nvcc_path()), "cuobjdump")
     sass = {}
     if os.path.exists(cuobjdump):
-        out = subprocess.run([cuobjdump, "-sass", str(_build._target("flash_attention_fwd"))],
+        out = subprocess.run([cuobjdump, "-sass", str(_build._target(name))],
                              capture_output=True, text=True, timeout=120).stdout
         sass = {op: len(re.findall(rf"\b{op}\b", out)) for op in ("HGMMA", "UTMALDG", "HMMA")}
     return {"kernels": res, "sass": sass}
@@ -340,6 +357,18 @@ def _bwd_bound_ms(kind, b, h, sq, skv_valid, skv, d, elt, masked):
     return max(t_ops, t_mem) * 1e3, ("operations" if t_ops >= t_mem else "bytes")
 
 
+def _device_ms_per_call(fn, calls: int = 10):
+    """Device time of one `fn()`: the profiler's sum of kernel times over
+    `calls` calls after a warm-up, over `calls` (None if it sees none)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    prof = profile_episode(lambda: [fn() for _ in range(calls)])
+    busy = prof.get("device_busy_ms")
+    return None if busy is None else busy / calls
+
+
 def phase_bwd():
     import torch
     import torch.nn.functional as F
@@ -378,35 +407,51 @@ def phase_bwd():
                 dead = ~mask[:, :, None, None].expand_as(got[1])
                 zero_masked = bool((got[1][dead] == 0).all() and (got[2][dead] == 0).all())
             del want
-            delta = (out.float() * g.float()).sum(-1)
-            dq_ms = cuda_ms(lambda: flash_attention_bwd_dq(q, k, v, g, lse, delta, scale=scale,
-                                                           kv_mask=mask))
-            dkv_ms = cuda_ms(lambda: flash_attention_bwd_dkv(q, k, v, g, lse, delta,
-                                                             scale=scale, kv_mask=mask))
+            again = flash_attention_bwd(q, k, v, out, lse, g, scale=scale, kv_mask=mask)
+            repeat_same = all(torch.equal(a, r) for a, r in zip(got, again))
+            del again
+            stats = flash_attention_bwd_dq(q, k, v, g, out, lse, scale=scale, kv_mask=mask)[1]
+            # ten calls back to back between events, here and for SDPA's
+            # backward: one call alone would carry the wrapper's host time
+            dq_ms = cuda_ms(lambda: flash_attention_bwd_dq(q, k, v, g, out, lse, scale=scale,
+                                                           kv_mask=mask), inner=10)
+            dkv_ms = cuda_ms(lambda: flash_attention_bwd_dkv(q, k, v, g, stats, scale=scale,
+                                                             kv_mask=mask), inner=10)
+            # the whole call (δ, dq, dkv): the fair comparison with SDPA's backward
+            bwd_ms = cuda_ms(lambda: flash_attention_bwd(q, k, v, out, lse, g, scale=scale,
+                                                         kv_mask=mask), inner=10)
             plain_ms = cuda_ms(lambda: flash_attention_bwd_reference(
                 q, k, v, mask, out, lse, g, scale), reps=3, warmup=1)
             qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
             am = None if mask is None else mask[:, None, None, :]
             o_lib = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am)
             gt = g.transpose(1, 2)
-            lib_ms = cuda_ms(lambda: torch.autograd.grad(o_lib, (qt, kt, vt), gt,
-                                                         retain_graph=True))
+            lib_call = lambda: torch.autograd.grad(o_lib, (qt, kt, vt), gt, retain_graph=True)
+            lib_ms = cuda_ms(lib_call, inner=10)
+            # device time alone (the profiler's kernel time over ten calls): SDPA's
+            # backward through autograd carries more host time than the device
+            # needs below the largest shapes, so events time its host path there
+            lib_dev_ms = _device_ms_per_call(lib_call)
+            bwd_dev_ms = _device_ms_per_call(lambda: flash_attention_bwd(
+                q, k, v, out, lse, g, scale=scale, kv_mask=mask))
             del o_lib, qt, kt, vt
             bounds = {kind: _bwd_bound_ms(kind, b, h, sq, skv_valid, skv, d, q.element_size(),
                                           mask is not None) for kind in ("dq", "dkv")}
-            ok = max(rel.values()) <= BWD_TOL[name] and zero_masked
+            ok = max(rel.values()) <= BWD_TOL[name] and zero_masked and repeat_same
             row = {"shape": label, "dtype": name, "B": b, "H": h, "Sq": sq, "Skv": skv,
                    "Skv_valid": skv_valid, "d": d, "mask": mk, "rel_err": rel,
                    "max_abs_err": absd, "masked_keys_zero": zero_masked,
-                   "dq_ms": dq_ms, "dkv_ms": dkv_ms, "plain_ms": plain_ms,
-                   "library_ms": lib_ms, "dq_bound_ms": bounds["dq"][0],
+                   "repeat_bit_identical": repeat_same, "dq_ms": dq_ms, "dkv_ms": dkv_ms,
+                   "bwd_ms": bwd_ms, "bwd_device_ms": bwd_dev_ms, "plain_ms": plain_ms,
+                   "library_ms": lib_ms, "library_device_ms": lib_dev_ms,
+                   "dq_bound_ms": bounds["dq"][0],
                    "dq_bound_by": bounds["dq"][1], "dkv_bound_ms": bounds["dkv"][0],
                    "dkv_bound_by": bounds["dkv"][1], "ok": ok}
             rows.append(row)
             emit(row)
             check(ok, f"backward kernels disagree with the plain version at {label} {name}: "
-                      f"{rel}, masked keys zero: {zero_masked}")
-            del got, out, lse, delta
+                      f"{rel}, masked keys zero: {zero_masked}, repeat: {repeat_same}")
+            del got, out, lse, stats
         torch.cuda.empty_cache()
     RESULTS["bwd"] = rows
     return rows
@@ -1539,7 +1584,11 @@ def phase_train(card):
         nonlocal grads
         grads = make_grad_fn(cfg, unet)(state.params, vae, text_embed, micro1, gen)[1]
 
-    res["profile_micro_step"] = profile_episode(micro_step)
+    res["profile_micro_step"] = prof_micro = profile_episode(micro_step)
+    if isinstance(prof_micro.get("flash_kernels_ms"), dict):
+        for kind in ("fwd", "bwd"):  # the bwd sum includes the split passes' sums
+            prof_micro[f"flash_{kind}_ms"] = sum(
+                ms for n, ms in prof_micro["flash_kernels_ms"].items() if f"flash_{kind}" in n)
     res["profile_optimizer"] = profile_episode(
         lambda: make_optimizer(cfg).update(grads, state.opt_state, state.params))
     del grads
@@ -1716,9 +1765,18 @@ def kernel_record(rows, bwd_rows, norm_rows, fused_rows, down_rows, episode_laun
             "max_abs_err": max(r["max_abs_err"][e] for r in bwd_rows for e in errs),
             "ms": bmain[f"{kind}_ms"], "plain_ms": bmain["plain_ms"],
             "bound_ms": bmain[f"{kind}_bound_ms"], "bound_by": bmain[f"{kind}_bound_by"],
-            "library_ms": bmain["library_ms"],
-            "shape": f"B1 H5 4096x8192 d64 bf16; plain_ms and library_ms are the whole "
-                     "backward (dq, dk, dv)"})
+            "library_ms": bmain["library_ms"], "whole_bwd_ms": bmain["bwd_ms"],
+            "library_device_ms": bmain["library_device_ms"],
+            "whole_bwd_device_ms": bmain["bwd_device_ms"],
+            "design": "bf16: warp-specialised (a TMA producer warp, two wgmma consumer "
+                      "warpgroups, setmaxnreg); dq: 128 query rows per CTA, 128-key tiles "
+                      "in a 3-stage ring, masked key tiles skipped, delta computed; dkv: "
+                      "128 keys per CTA, 64-row q-tiles in a 4-stage ring; walks split "
+                      "over CTAs for small grids, f32 partials summed in order; f32: FMA",
+            "shape": f"B1 H5 4096x8192 d64 bf16; plain_ms, library_ms and whole_bwd_ms "
+                     "are the whole backward (dq, dk, dv; whole_bwd_ms: the "
+                     "flash_attention_bwd call, delta included); *_device_ms: the "
+                     "profiler's kernel time alone"})
     gn_shape = "x".join(map(str, NORM_MAIN_SHAPE))
     out.append({
         "name": "gn_stats", "route": "cuda", "source": src + "groupnorm.cu",

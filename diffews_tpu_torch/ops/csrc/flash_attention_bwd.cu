@@ -3,54 +3,91 @@
 // Replaces the two Pallas TPU kernels of `diffews_tpu/ops/flash_attention.py`
 // that `_flash_backward` launches for `flash_attention`'s custom VJP:
 //
-//   _bwd_dq_kernel   ->  flash_bwd_dq_mma_kernel (bf16), flash_bwd_dq_kernel (f32)
-//   _bwd_dkv_kernel  ->  flash_bwd_dkv_mma_kernel (bf16), flash_bwd_dkv_kernel (f32)
+//   _bwd_dq_kernel   ->  flash_bwd_dq_wgmma_kernel (bf16), flash_bwd_dq_kernel (f32)
+//   _bwd_dkv_kernel  ->  flash_bwd_dkv_wgmma_kernel (bf16), flash_bwd_dkv_kernel (f32)
 //
 // They compute what the TPU kernels compute.  With s = scale * q_i . k_j,
 // p_ij = exp(s_ij - LSE_i) (the forward's saved f32 log-sum-exp), dp_ij =
-// g_i . v_j, delta_i = rowsum(O_i * g_i) (computed outside, as on the TPU)
-// and ds_ij = p_ij * (dp_ij - delta_i):
+// g_i . v_j, delta_i = rowsum(O_i * g_i) and ds_ij = p_ij * (dp_ij - delta_i):
 //
 //   dQ_i = scale * sum_j ds_ij k_j      dK_j = scale * sum_i ds_ij q_i
 //   dV_j = sum_i p_ij g_i
 //
-// with f32 accumulation and outputs in the input dtype.  Masking follows the
-// forward: a masked key gets p = 0 exactly (not exp of a -1e30 bias), so
-// masked keys get dK = dV = 0 exactly; a row with no valid key (LSE = -inf)
-// gets dQ = 0 and adds nothing to dK/dV.  Operands keep the (B, S, H, D)
-// layout; LSE and delta are (B, Sq, H) f32; the key mask is (B, Skv) uint8.
+// with f32 accumulation and outputs in the input dtype; in bf16, P and dS
+// are rounded to bf16 for the products, as the forward rounds P.  Masking
+// follows the forward: a masked key gets p = 0 exactly (not exp of a -1e30
+// bias), so masked keys get dK = dV = 0 exactly; a row with no valid key
+// (LSE = -inf) gets dQ = 0 and adds nothing to dK/dV.  Operands keep the
+// (B, S, H, D) layout; LSE is (B, Sq, H) f32; the key mask is (B, Skv) uint8.
 //
-// Design.  The TPU's two-pass split stays, because it needs no atomics:
-// every output element is written by one thread, so gradients are
-// deterministic.  The TPU grid axis that carried the f32 accumulator in
-// VMEM scratch (sequential "arbitrary" steps) becomes a loop inside the CTA
-// with the accumulator in registers:
-//  - dq: one CTA per (64-row q-tile, b*h), looping over 64-key tiles;
-//  - dkv: one CTA per (64-key tile, b*h), looping over 64-row q-tiles.  A
-//    CTA whose keys are all masked (padded shots) writes zeros and stops.
-// bf16 (d <= 64) runs every product on the tensor cores with the forward's
-// fragment scheme: the Q/G (dq) or K/V (dkv) rows of a warp sit in A
-// fragments; S and dP come out as C fragments, which packed to bf16 are the
-// A fragments of dS (and P) for the next product; the transposed operands
-// (K for dQ = dS K, G and Q for dV = P^T G and dK = dS^T Q) come from
-// row-major shared-memory tiles through ldmatrix.trans.  P and dS are
-// rounded to bf16 for those products, as the forward rounds P.  f32 runs on
-// the FMA pipes, a row on TPR lanes.
+// Two passes and no atomics: every output element is written by one
+// thread, so gradients are bit-deterministic.  The bf16 dq pass reads O
+// too: it computes delta in f32 and writes it, with -LSE*log2(e), as
+// (B*H, Sq) rows (`RowStats`), so the dkv pass can copy a q-tile's values
+// with one contiguous bulk copy (in (B, Sq, H) one head's values lie H
+// floats apart, which no TMA box can take).  The f32 pair keeps the torch
+// delta of the plain version (the f32 dq kernel only copies it), so f32
+// gradients round as before.
 //
-// What bounds it on this card: per head the work is 6*Sq*Skv*d (dq) and
-// 8*Sq*Skv*d (dkv) FLOPs against about 4*(Sq + Skv)*d bytes, hundreds of
-// FLOPs per byte at the UNet's shapes, so both are compute-bound, at the
-// bf16 tensor-core rate (989 TFLOP/s) or the f32 rate (67 TFLOP/s).  Tiles
-// are loaded synchronously and S, dP and dS are recomputed in both passes;
-// a one-pass FA2 form with wgmma/TMA is the later step (see PERF.md).
+// What bounds it on this card: per head the work is 6*Sq*Skv*d (dq: S, dP,
+// dQ) and 8*Sq*Skv*d (dkv: S, dP, dV, dK) FLOPs against about 4*(Sq +
+// Skv)*d bytes, hundreds of FLOPs per byte at the UNet's shapes, so both are
+// compute-bound, at the bf16 tensor-core rate (989 TFLOP/s).  What the bf16
+// design does about it, as the forward (`flash_attention_fwd.cu`) does:
+//
+//  - warp specialisation: a producer warp keeps TMA loads in flight through
+//    a ring of full/empty mbarriers; two consumer warpgroups run every
+//    product on wgmma (f32 accumulators in registers), setmaxnreg moving
+//    registers from the producer to them;
+//  - no transposed copy: the operands that enter a product transposed (K in
+//    dQ = dS K, g in dV = P^T g, Q in dK = dS^T Q) are read MN-major from
+//    their (row, d) tiles through the descriptor's transpose bit, and P, dS
+//    go from the accumulators, packed to bf16, straight into the A
+//    fragments of wgmma's register-A form;
+//  - skipped work: dq's producer votes over each key tile's mask bytes and
+//    skips tiles with no valid key (the padded shots), handing the key bits
+//    over beside the tile (`hopper::kv_ring_produce`, shared with the
+//    forward); a dkv CTA whose keys are all masked writes zeros and stops;
+//  - a filled card: at B = 1 a grid of one CTA per tile is one or two
+//    partial waves on 132 SMs (dq at the 64x64 level: 160 CTAs), so each
+//    pass splits its walk (keys for dq, queries for dkv) over gridDim.z
+//    CTAs when that fills the waves better (`plan_splits`).  Split CTAs
+//    write f32 partials that `flash_bwd_sum_splits_kernel` adds in split
+//    order, so the result stays deterministic.
+//
+// f32 runs on the FMA pipes, a row on TPR lanes (the parity paths use it).
 
 #include <math.h>
 
 #include "flash_common.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
 using namespace flash;
+using hopper::TileMeta;
+
+// Per-row statistics the dq pass writes for the dkv pass: (2, B*H, Sq_pad)
+// f32, -LSE*log2(e) (-inf for a row with no valid key and, in bf16, for
+// the rows past Sq up to Sq_pad) and delta.
+struct RowStats {
+  float* base;
+  int bh_count, sq_pad;
+  __device__ __forceinline__ float* neg_lse2(int bh) const {
+    return base + (size_t)bh * sq_pad;
+  }
+  __device__ __forceinline__ float* delta(int bh) const {
+    return base + ((size_t)bh_count + bh) * sq_pad;
+  }
+  __device__ __forceinline__ void put(int bh, int row, float nl, float dl) const {
+    neg_lse2(bh)[row] = nl;
+    delta(bh)[row] = dl;
+  }
+};
+
+constexpr int kStatsRows = 128;  // Sq_pad is a multiple of this (the bf16 dq tile)
+constexpr int kMaxSplits = 8;
+constexpr int kMinSplitRows = 1024;  // keys (dq) or query rows (dkv) a split walks at least
 
 constexpr int kChunk = 8;  // f32 kernels: keys (dq) or queries (dkv) per register block
 
@@ -58,14 +95,17 @@ constexpr int kChunk = 8;  // f32 kernels: keys (dq) or queries (dkv) per regist
 
 // dQ for f32.  Each query row belongs to TPR consecutive lanes, each holding
 // D/TPR dims of q, g and the accumulator; K/V tiles of 64 keys are read
-// from shared memory.
+// from shared memory.  delta (B, Sq, H) comes from the caller, computed in
+// torch as the plain version computes it, so f32 gradients repeat the
+// plain path's rounding; the kernel copies it, with -LSE*log2e, into the
+// row statistics for the dkv pass (`RowStats`).
 template <int D, int TPR>
 __global__ void __launch_bounds__(128)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ g,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    const uint8_t* __restrict__ mask, float* __restrict__ dq, int H,
-                    int Sq, int Skv, float scale, float scale_log2) {
+                    const float* __restrict__ delta, const float* __restrict__ lse,
+                    const uint8_t* __restrict__ mask, float* __restrict__ dq,
+                    RowStats st, int H, int Sq, int Skv, float scale, float scale_log2) {
   constexpr int NT = 128, BK = 64;
   constexpr int ROWS = NT / TPR;
   constexpr int NC = D / (4 * TPR);  // float4 chunks per lane
@@ -93,9 +133,10 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     acc[i] = z;
   }
   // rows past Sq and rows with no valid key (LSE = -inf) contribute nothing
-  const float lse2 = row_ok ? lse[ridx] * kLog2e : -INFINITY;
   const float dl = row_ok ? delta[ridx] : 0.f;
+  const float lse2 = row_ok ? lse[ridx] * kLog2e : -INFINITY;
   const bool live = lse2 != -INFINITY;
+  if (row_ok && lane_c == 0) st.put(bh, row, live ? -lse2 : -INFINITY, dl);
 
   for (int kv0 = 0; kv0 < Skv; kv0 += BK) {
     __syncthreads();  // the previous tile is consumed
@@ -184,8 +225,7 @@ template <int D, int TPR>
 __global__ void __launch_bounds__(128)
 flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ g,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     const uint8_t* __restrict__ mask, float* __restrict__ dk,
+                     RowStats st, const uint8_t* __restrict__ mask, float* __restrict__ dk,
                      float* __restrict__ dv, int H, int Sq, int Skv, float scale,
                      float scale_log2) {
   constexpr int NT = 128, BQ = 64;
@@ -196,7 +236,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   __shared__ __align__(16) float qs[BQ * D];
   __shared__ __align__(16) float gs[BQ * D];
-  __shared__ float lse_s[BQ];  // log2 units; -inf for rows past Sq
+  __shared__ float nl_s[BQ];  // -LSE in log2 units; -inf for dead rows and rows past Sq
   __shared__ float dl_s[BQ];
 
   const int tid = threadIdx.x;
@@ -244,9 +284,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     for (int i = tid; i < BQ; i += NT) {
       const int row = q0 + i;
-      const size_t ridx = (size_t)(b * Sq + row) * H + h;
-      lse_s[i] = row < Sq ? lse[ridx] * kLog2e : -INFINITY;
-      dl_s[i] = row < Sq ? delta[ridx] : 0.f;
+      nl_s[i] = row < Sq ? st.neg_lse2(bh)[row] : -INFINITY;
+      dl_s[i] = row < Sq ? st.delta(bh)[row] : 0.f;
     }
     __syncthreads();
 
@@ -284,8 +323,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
 #pragma unroll
       for (int ii = 0; ii < kChunk; ++ii) {
-        const float l2 = lse_s[i0 + ii];
-        const float p = (key_ok && l2 != -INFINITY) ? exp2f(fmaf(s[ii], scale_log2, -l2)) : 0.f;
+        const float nl = nl_s[i0 + ii];
+        const float p = (key_ok && nl != -INFINITY) ? exp2f(fmaf(s[ii], scale_log2, nl)) : 0.f;
         dp[ii] = p * (dp[ii] - dl_s[i0 + ii]);  // ds
         s[ii] = p;
       }
@@ -320,330 +359,507 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// --- bf16 tensor-core kernels, d <= 64 ---------------------------------------
+// --- bf16: warp-specialised wgmma kernels, d in {16, 32, 64} ---------------
+//
+// A CTA is three warpgroups: two consumers (threads 0-255) and a producer
+// (256-383, of which one warp works).  Rows are D*2 bytes, one swizzle span
+// (128 B at d = 64, 64 at 32, 32 at 16), as TMA writes them and a wgmma
+// descriptor of the same swizzle reads them.
 
-// Loads the A fragments of rows r0 and r0 + 8 of a (rows, D) bf16 operand
-// whose rows are `stride` elements apart; rows at or past `n` read as zero.
-template <int KD>
-__device__ __forceinline__ void load_a_rows(uint32_t (&a)[KD][4], const __nv_bfloat16* base,
-                                            size_t stride, int r0, int n, int t) {
-#pragma unroll
-  for (int kd = 0; kd < KD; ++kd) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = r0 + ((i & 1) ? 8 : 0);
-      const int col = kd * 16 + (i >> 1) * 8 + 2 * t;
-      a[kd][i] = row < n ? *reinterpret_cast<const uint32_t*>(base + (size_t)row * stride + col)
-                         : 0u;
-    }
-  }
+// Packs a 16-column k-step of f32 accumulator values (rows g and g+8,
+// columns 8j + 2t (+1) for j = 2kk, 2kk+1) into wgmma's A fragment: x0/x1
+// are this lane's values of rows g / g+8 in the two 8-column groups.
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4], int j, float r0e0, float r0e1,
+                                       float r1e0, float r1e1) {
+  a[2 * (j % 2)] = pack_bf16(r0e0, r0e1);
+  a[2 * (j % 2) + 1] = pack_bf16(r1e0, r1e1);
 }
 
-// Copies rows [r0, r0 + 64) of a (rows, D) bf16 operand into a padded
-// shared-memory tile; rows at or past `n` are zero.
-template <int D, int KS>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* base,
-                                          size_t stride, int r0, int n, int tid) {
-  constexpr int CH = D / 8;  // 16-byte chunks per row
-  for (int c = tid; c < 64 * CH; c += 128) {
-    const int j = c / CH, dd = (c % CH) * 8;
-    uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + j < n) x = *reinterpret_cast<const uint4*>(base + (size_t)(r0 + j) * stride + dd);
-    *reinterpret_cast<uint4*>(dst + j * KS + dd) = x;
-  }
-}
-
-// dQ for bf16: four warps of 16 query rows; per 64-key tile, S = Q K^T and
-// dP = G V^T on the tensor cores, dS = P (dP - delta) in f32 registers,
-// then dQ += dS K with K's fragments through ldmatrix.trans.
+// delta = rowsum(O * g) of one row in f32: the quad's four lanes take D/4
+// dims each (4 bf16 per 8-byte load); rows at or past Sq give 0.
 template <int D>
-__global__ void __launch_bounds__(128)
-flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                        const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v,
-                        const __nv_bfloat16* __restrict__ g,
-                        const float* __restrict__ lse, const float* __restrict__ delta,
-                        const uint8_t* __restrict__ mask, __nv_bfloat16* __restrict__ dq,
-                        int H, int Sq, int Skv, float scale, float scale_log2) {
-  constexpr int BQ = 64, BKV = 64;
-  constexpr int KS = D + 8;      // padded row stride of the K/V tiles (bf16)
-  constexpr int NKT = BKV / 8;   // 8-key score tiles
-  constexpr int NDT = D / 8;     // 8-dim output tiles
-  constexpr int KD = D / 16;     // k-steps over the head dim
-  static_assert(D % 16 == 0 && NDT % 2 == 0, "head dim must be a multiple of 16");
+__device__ __forceinline__ float row_delta(const __nv_bfloat16* o, const __nv_bfloat16* g,
+                                           bool ok, int t) {
+  float acc = 0.f;
+  if (ok) {
+#pragma unroll
+    for (int i = 0; i < D / 16; ++i) {
+      const int col = t * (D / 4) + 4 * i;
+      const uint2 ov = *reinterpret_cast<const uint2*>(o + col);
+      const uint2 gv = *reinterpret_cast<const uint2*>(g + col);
+      const float2 o0 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ov.x));
+      const float2 o1 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ov.y));
+      const float2 g0 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&gv.x));
+      const float2 g1 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&gv.y));
+      acc += o0.x * g0.x + o0.y * g0.y + o1.x * g1.x + o1.y * g1.y;
+    }
+  }
+  return quad_sum(acc);
+}
 
-  __shared__ __align__(16) __nv_bfloat16 ks[BKV * KS];
-  __shared__ __align__(16) __nv_bfloat16 vs[BKV * KS];
-  __shared__ float kval[BKV];  // 1 = valid key
+// dq: 128 query rows per CTA (64 per consumer warpgroup), key tiles of 128
+// through a STAGES-deep K+V ring; Q and g loaded once.
+template <int D>
+struct DqCfg {
+  static constexpr int BQ = 128, BKV = 128, STAGES = 3;
+  static constexpr int SPAN = D * 2;
+  static constexpr int Q_BYTES = BQ * SPAN;    // Q or g
+  static constexpr int KV_BYTES = BKV * SPAN;  // one K or one V tile
+  static constexpr int K_OFF = 2 * Q_BYTES;
+  static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
+  static constexpr int META_OFF = V_OFF + STAGES * KV_BYTES;
+  static constexpr int BAR_OFF = META_OFF + STAGES * (int)sizeof(TileMeta);
+  static constexpr int SMEM = BAR_OFF + (2 * STAGES + 1) * 8 + 1024;  // + alignment slack
+};
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int gq = lane / 4, t = lane % 4;
+// The consumers, per key tile: S = Q K^T and dP = g V^T (wgmma, both
+// operands K-major in shared memory), P = 2^(S*scale*log2e - LSE*log2e)
+// with the tile's key bits applied, dS = P (dP - delta) packed to bf16,
+// dQ += dS K (wgmma with dS from registers, K read MN-major).  Split z
+// walks key tiles [z*tps, (z+1)*tps); with more than one split it writes
+// f32 partials of dQ / scale to `part` ((splits, B, Sq, H, D)), else dQ.
+// Split 0 writes the row statistics.
+template <int D>
+__global__ void __launch_bounds__(384, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tg,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __nv_bfloat16* __restrict__ o,
+                          const __nv_bfloat16* __restrict__ g, const float* __restrict__ lse,
+                          const uint8_t* __restrict__ mask, __nv_bfloat16* __restrict__ dq,
+                          float* __restrict__ part, RowStats st, int H, int Sq, int Skv,
+                          int tps, float scale, float scale_log2) {
+  using namespace hopper;
+  using C = DqCfg<D>;
+  constexpr int SPAN = C::SPAN, BKV = C::BKV, STAGES = C::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* qs = base;
+  uint8_t* gs = base + C::Q_BYTES;
+  uint8_t* ks = base + C::K_OFF;  // [STAGES][BKV rows]
+  uint8_t* vs = base + C::V_OFF;
+  TileMeta* meta = reinterpret_cast<TileMeta*>(base + C::META_OFF);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + C::BAR_OFF);
+  uint64_t* empty = full + STAGES;
+  uint64_t* qbar = empty + STAGES;
+
+  const int tid = threadIdx.x, lane = tid % 32;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int r0 = blockIdx.x * BQ + warp * 16 + gq, r1 = r0 + 8;
-  const size_t row_stride = (size_t)H * D;
-  const __nv_bfloat16* qb = q + (size_t)b * Sq * row_stride + (size_t)h * D;
-  const __nv_bfloat16* gb = g + (size_t)b * Sq * row_stride + (size_t)h * D;
-  const __nv_bfloat16* kb = k + (size_t)b * Skv * row_stride + (size_t)h * D;
-  const __nv_bfloat16* vb = v + (size_t)b * Skv * row_stride + (size_t)h * D;
-
-  uint32_t qa[KD][4], ga[KD][4];
-  load_a_rows<KD>(qa, qb, row_stride, r0, Sq, t);
-  load_a_rows<KD>(ga, gb, row_stride, r0, Sq, t);
-  const size_t i0 = ((size_t)b * Sq + r0) * H + h, i1 = ((size_t)b * Sq + r1) * H + h;
-  const float lse0 = r0 < Sq ? lse[i0] * kLog2e : -INFINITY;
-  const float lse1 = r1 < Sq ? lse[i1] * kLog2e : -INFINITY;
-  const float dl0 = r0 < Sq ? delta[i0] : 0.f;
-  const float dl1 = r1 < Sq ? delta[i1] : 0.f;
-  const bool live0 = lse0 != -INFINITY, live1 = lse1 != -INFINITY;
-
-  float acc[NDT][4];
-#pragma unroll
-  for (int n = 0; n < NDT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
-  for (int kv0 = 0; kv0 < Skv; kv0 += BKV) {
-    __syncthreads();  // the previous tile is consumed
-    load_tile<D, KS>(ks, kb, row_stride, kv0, Skv, tid);
-    load_tile<D, KS>(vs, vb, row_stride, kv0, Skv, tid);
-    for (int j = tid; j < BKV; j += 128) {
-      const int key = kv0 + j;
-      kval[j] = (key < Skv && (mask == nullptr || mask[(size_t)b * Skv + key] != 0)) ? 1.f : 0.f;
+  const int q0 = blockIdx.x * C::BQ, split = blockIdx.z;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // lane 0 of each consumer warp
     }
-    __syncthreads();
+    mbar_init(qbar, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
 
-    float s[NKT][4], dp[NKT][4];
-#pragma unroll
-    for (int n = 0; n < NKT; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-      dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
+  if (tid >= 256) {  // producer warpgroup
+    setmaxnreg_dec<40>();
+    if (tid / 32 != 8) return;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(qbar, 2 * C::Q_BYTES);
+      tma_load_4d(qs, &tq, qbar, 0, h, q0, b);
+      tma_load_4d(gs, &tg, qbar, 0, h, q0, b);
     }
+    const uint8_t* mrow = mask == nullptr ? nullptr : mask + (size_t)b * Skv;
+    const int j0 = split * tps, j1 = min((Skv + BKV - 1) / BKV, j0 + tps);
+    kv_ring_produce<STAGES, BKV>(&tk, &tv, ks, vs, C::KV_BYTES, meta, full, empty, mrow, h, b,
+                                 j0, j1, Skv, lane);
+    return;
+  }
+
+  // consumer warpgroup c: query rows q0 + 64c + 16*warp + gq (+8)
+  setmaxnreg_inc<232>();
+  const int c = tid / 128, warp = (tid % 128) / 32, gq = lane / 4, t = lane % 4;
+  const int r0 = q0 + 64 * c + 16 * warp + gq, r1 = r0 + 8;
+  // row statistics, while Q and g arrive: nl = -LSE*log2e (-inf: no valid
+  // key, or past Sq, so p = 2^-inf = 0), delta from O and g
+  float nl[2], dl[2];
 #pragma unroll
-    for (int kd = 0; kd < KD; ++kd) {
+  for (int half = 0; half < 2; ++half) {
+    const int row = half ? r1 : r0;
+    const bool ok = row < Sq;
+    const size_t off = (((size_t)b * Sq + (ok ? row : 0)) * H + h) * D;
+    dl[half] = row_delta<D>(o + off, g + off, ok, t);
+    const float l = ok ? lse[((size_t)b * Sq + row) * H + h] : -INFINITY;
+    nl[half] = l == -INFINITY ? -INFINITY : -l * kLog2e;
+    if (split == 0 && t == 0) st.put(bh, row, nl[half], dl[half]);
+  }
+  const uint32_t q_addr = smem_addr(qs + c * 64 * SPAN), g_addr = smem_addr(gs + c * 64 * SPAN);
+  float acc[D / 2];  // dQ / scale, rows r0 (+8), dims 8j + 2t (+1)
 #pragma unroll
-      for (int n = 0; n < NKT; ++n) {
-        const __nv_bfloat16* kp = ks + (n * 8 + gq) * KS + kd * 16 + 2 * t;
-        const __nv_bfloat16* vp = vs + (n * 8 + gq) * KS + kd * 16 + 2 * t;
-        mma_bf16(s[n], qa[kd], *reinterpret_cast<const uint32_t*>(kp),
-                 *reinterpret_cast<const uint32_t*>(kp + 8));
-        mma_bf16(dp[n], ga[kd], *reinterpret_cast<const uint32_t*>(vp),
-                 *reinterpret_cast<const uint32_t*>(vp + 8));
-      }
-    }
-    // dS = P (dP - delta), in place of S
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  mbar_wait(qbar, 0);
+
+  int stage = 0;
+  uint32_t phase = 0;
+  for (;;) {
+    mbar_wait(&full[stage], phase);
+    if (meta[stage].tile < 0) break;
+    uint32_t sh[BKV / 32];  // bit 8*(j%4) + e: key 8j + 2t + e of word j/4
 #pragma unroll
-    for (int n = 0; n < NKT; ++n) {
+    for (int w = 0; w < BKV / 32; ++w) sh[w] = meta[stage].bits[w] >> (2 * t);
+    const uint32_t k_addr = smem_addr(ks + stage * C::KV_BYTES);
+    const uint32_t v_addr = smem_addr(vs + stage * C::KV_BYTES);
+    float s[BKV / 2], dp[BKV / 2];  // rows as acc, keys 8j + 2t (+1)
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<BKV, 0>(s, make_desc<SPAN>(q_addr + kk * 32), make_desc<SPAN>(k_addr + kk * 32),
+                       kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<BKV, 0>(dp, make_desc<SPAN>(g_addr + kk * 32), make_desc<SPAN>(v_addr + kk * 32),
+                       kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(s);
+    fence_operands(dp);
+    uint32_t ds[BKV / 16][4];  // dS in bf16: the A fragments of dS K
+#pragma unroll
+    for (int j = 0; j < BKV / 8; ++j) {
+      float d[4];
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const bool ok = kval[n * 8 + 2 * t + e] != 0.f;
-        const float p0 = (ok && live0) ? exp2f(fmaf(s[n][e], scale_log2, -lse0)) : 0.f;
-        const float p1 = (ok && live1) ? exp2f(fmaf(s[n][2 + e], scale_log2, -lse1)) : 0.f;
-        s[n][e] = p0 * (dp[n][e] - dl0);
-        s[n][2 + e] = p1 * (dp[n][2 + e] - dl1);
+        const bool ok = (sh[j / 4] >> (8 * (j % 4) + e)) & 1u;
+        const float p0 = ok ? ex2(fmaf(s[4 * j + e], scale_log2, nl[0])) : 0.f;
+        const float p1 = ok ? ex2(fmaf(s[4 * j + 2 + e], scale_log2, nl[1])) : 0.f;
+        d[e] = p0 * (dp[4 * j + e] - dl[0]);
+        d[2 + e] = p1 * (dp[4 * j + 2 + e] - dl[1]);
       }
+      pack_a(ds[j / 2], j, d[0], d[1], d[2], d[3]);
     }
+    wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < BKV / 16; ++kk) {
-      const uint32_t da[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      // ldmatrix.x4.trans: lanes 8i..8i+7 address the rows of 8x8 matrix i,
-      // i = (keys +8 if odd) + (dims +8 if i >= 2)
-      const int key = kk * 16 + (lane & 8) + (lane & 7);
-#pragma unroll
-      for (int n = 0; n < NDT; n += 2) {
-        uint32_t kf[4];
-        ldmatrix_x4_trans(kf, ks + key * KS + (n + (lane >> 4)) * 8);
-        mma_bf16(acc[n], da, kf[0], kf[1]);
-        mma_bf16(acc[n + 1], da, kf[2], kf[3]);
-      }
-    }
+    for (int kk = 0; kk < BKV / 16; ++kk)
+      wgmma_rs<D>(acc, ds[kk], make_desc<SPAN>(k_addr + kk * 16 * SPAN), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[stage]);
+    if (++stage == STAGES) { stage = 0; phase ^= 1; }
   }
 
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int row = half ? r1 : r0;
     if (row >= Sq) continue;
-    __nv_bfloat16* drow = dq + ((size_t)b * Sq + row) * row_stride + (size_t)h * D;
+    const size_t off = (((size_t)b * Sq + row) * H + h) * D;
+    if (part == nullptr) {
 #pragma unroll
-    for (int n = 0; n < NDT; ++n) {
-      *reinterpret_cast<uint32_t*>(drow + n * 8 + 2 * t) =
-          pack_bf16(acc[n][2 * half] * scale, acc[n][2 * half + 1] * scale);
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(dq + off + 8 * j + 2 * t) =
+            pack_bf16(acc[4 * j + 2 * half] * scale, acc[4 * j + 2 * half + 1] * scale);
+    } else {
+      float* p = part + (size_t)split * gridDim.y * Sq * D + off;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<float2*>(p + 8 * j + 2 * t) =
+            make_float2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
     }
   }
 }
 
-// dK and dV for bf16: four warps of 16 keys; per 64-row q-tile, S^T = K Q^T
-// and dP^T = V G^T on the tensor cores (K and V rows in A fragments, Q and
-// G rows of the shared tile as B operands), P^T and dS^T in f32 registers,
-// then dV += P^T G and dK += dS^T Q with G's and Q's fragments through
-// ldmatrix.trans.  Each lane's two keys are fixed, so their mask is read
-// once.
+// dkv: 128 keys per CTA (64 per consumer warpgroup), K and V loaded once;
+// q-tiles of 64 rows, with their row statistics, through a STAGES-deep ring.
 template <int D>
-__global__ void __launch_bounds__(128)
-flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                         const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v,
-                         const __nv_bfloat16* __restrict__ g,
-                         const float* __restrict__ lse, const float* __restrict__ delta,
-                         const uint8_t* __restrict__ mask, __nv_bfloat16* __restrict__ dk,
-                         __nv_bfloat16* __restrict__ dv, int H, int Sq, int Skv, float scale,
-                         float scale_log2) {
-  constexpr int BQ = 64, BKV = 64;
-  constexpr int KS = D + 8;      // padded row stride of the Q/G tiles (bf16)
-  constexpr int NQT = BQ / 8;    // 8-query score tiles
-  constexpr int NDT = D / 8;     // 8-dim output tiles
-  constexpr int KD = D / 16;     // k-steps over the head dim
-  static_assert(D % 16 == 0 && NDT % 2 == 0, "head dim must be a multiple of 16");
+struct DkvCfg {
+  static constexpr int BKV = 128, BQ = 64, STAGES = 4;
+  static constexpr int SPAN = D * 2;
+  static constexpr int K_BYTES = BKV * SPAN;  // K or V
+  static constexpr int T_BYTES = BQ * SPAN;   // one Q or one g tile
+  static constexpr int ST_BYTES = 2 * BQ * 4; // one tile's -LSE*log2e and delta
+  static constexpr int Q_OFF = 2 * K_BYTES;
+  static constexpr int G_OFF = Q_OFF + STAGES * T_BYTES;
+  static constexpr int ST_OFF = G_OFF + STAGES * T_BYTES;
+  static constexpr int BAR_OFF = ST_OFF + STAGES * ST_BYTES;
+  static constexpr int SMEM = BAR_OFF + (2 * STAGES + 1) * 8 + 1024;
+};
 
-  __shared__ __align__(16) __nv_bfloat16 qs[BQ * KS];
-  __shared__ __align__(16) __nv_bfloat16 gs[BQ * KS];
-  __shared__ float lse_s[BQ];  // log2 units; -inf for rows past Sq
-  __shared__ float dl_s[BQ];
+// The consumers, per q-tile: S^T = K Q^T and dP^T = V g^T (wgmma, both
+// K-major), P^T and dS^T with the lane's two key rows' validity (read once)
+// and the tile's statistics, then dV += P^T g and dK += dS^T Q (P^T, dS^T
+// from registers; g and Q read MN-major).  Split z walks q-tiles [z*tps,
+// (z+1)*tps); with more than one split it writes f32 partials of dK /
+// scale and dV to `part` ((splits, 2, B, Skv, H, D)), else dK and dV.
+template <int D>
+__global__ void __launch_bounds__(384, 1)
+flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tg,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv, RowStats st,
+                           const uint8_t* __restrict__ mask, __nv_bfloat16* __restrict__ dk,
+                           __nv_bfloat16* __restrict__ dv, float* __restrict__ part, int H,
+                           int Sq, int Skv, int tps, float scale, float scale_log2) {
+  using namespace hopper;
+  using C = DkvCfg<D>;
+  constexpr int SPAN = C::SPAN, BQ = C::BQ, STAGES = C::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* ks = base;
+  uint8_t* vs = base + C::K_BYTES;
+  uint8_t* qs = base + C::Q_OFF;  // [STAGES][BQ rows]
+  uint8_t* gs = base + C::G_OFF;
+  float* sts = reinterpret_cast<float*>(base + C::ST_OFF);  // [STAGES][2][BQ]
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + C::BAR_OFF);
+  uint64_t* empty = full + STAGES;
+  uint64_t* kvbar = empty + STAGES;
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int gq = lane / 4, t = lane % 4;
+  const int tid = threadIdx.x, lane = tid % 32;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int k0 = blockIdx.x * BKV + warp * 16 + gq, k1 = k0 + 8;
-  const size_t row_stride = (size_t)H * D;
-  const __nv_bfloat16* qb = q + (size_t)b * Sq * row_stride + (size_t)h * D;
-  const __nv_bfloat16* gb = g + (size_t)b * Sq * row_stride + (size_t)h * D;
-  const __nv_bfloat16* kb = k + (size_t)b * Skv * row_stride + (size_t)h * D;
-  const __nv_bfloat16* vb = v + (size_t)b * Skv * row_stride + (size_t)h * D;
-  __nv_bfloat16* dkb = dk + (size_t)b * Skv * row_stride + (size_t)h * D;
-  __nv_bfloat16* dvb = dv + (size_t)b * Skv * row_stride + (size_t)h * D;
-
-  const bool ok0 = k0 < Skv && (mask == nullptr || mask[(size_t)b * Skv + k0] != 0);
-  const bool ok1 = k1 < Skv && (mask == nullptr || mask[(size_t)b * Skv + k1] != 0);
-
+  const int k0 = blockIdx.x * C::BKV, split = blockIdx.z;
+  const size_t count = (size_t)gridDim.y * Skv * D;  // elements of dK (or dV)
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);
+    }
+    mbar_init(kvbar, 1);
+    fence_barrier_init();
+  }
+  const bool key_ok = tid < C::BKV && k0 + tid < Skv &&
+                      (mask == nullptr || mask[(size_t)b * Skv + k0 + tid] != 0);
   // every key of the CTA masked (padded shots): dK = dV = 0, nothing to read
-  if (!__syncthreads_or(ok0 || ok1)) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int key = half ? k1 : k0;
-      if (key >= Skv) continue;
-#pragma unroll
-      for (int n = 0; n < NDT; ++n) {
-        *reinterpret_cast<uint32_t*>(dkb + (size_t)key * row_stride + n * 8 + 2 * t) = 0u;
-        *reinterpret_cast<uint32_t*>(dvb + (size_t)key * row_stride + n * 8 + 2 * t) = 0u;
+  if (!__syncthreads_or(key_ok)) {
+    const int nkeys = min(C::BKV, Skv - k0);
+    for (int i = tid; i < nkeys * (D / 8); i += blockDim.x) {
+      const size_t off = (((size_t)b * Skv + k0 + i / (D / 8)) * H + h) * D + (i % (D / 8)) * 8;
+      if (part == nullptr) {
+        *reinterpret_cast<uint4*>(dk + off) = make_uint4(0u, 0u, 0u, 0u);
+        *reinterpret_cast<uint4*>(dv + off) = make_uint4(0u, 0u, 0u, 0u);
+      } else {
+        float* p = part + (size_t)split * 2 * count + off;
+        const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+        store4(p, z);
+        store4(p + 4, z);
+        store4(p + count, z);
+        store4(p + count + 4, z);
       }
     }
     return;
   }
 
-  uint32_t ka[KD][4], va[KD][4];
-  load_a_rows<KD>(ka, kb, row_stride, k0, Skv, t);
-  load_a_rows<KD>(va, vb, row_stride, k0, Skv, t);
-
-  float adk[NDT][4], adv[NDT][4];
-#pragma unroll
-  for (int n = 0; n < NDT; ++n) {
-    adk[n][0] = adk[n][1] = adk[n][2] = adk[n][3] = 0.f;
-    adv[n][0] = adv[n][1] = adv[n][2] = adv[n][3] = 0.f;
+  const int i0 = split * tps, i1 = min((Sq + BQ - 1) / BQ, i0 + tps);
+  if (tid >= 256) {  // producer warpgroup
+    setmaxnreg_dec<40>();
+    if (tid / 32 != 8) return;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(kvbar, 2 * C::K_BYTES);
+      tma_load_4d(ks, &tk, kvbar, 0, h, k0, b);
+      tma_load_4d(vs, &tv, kvbar, 0, h, k0, b);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int i = i0; i < i1; ++i) {
+        mbar_wait(&empty[stage], phase ^ 1);
+        mbar_arrive_expect_tx(&full[stage], 2 * C::T_BYTES + C::ST_BYTES);
+        tma_load_4d(qs + stage * C::T_BYTES, &tq, &full[stage], 0, h, i * BQ, b);
+        tma_load_4d(gs + stage * C::T_BYTES, &tg, &full[stage], 0, h, i * BQ, b);
+        float* dst = sts + stage * 2 * BQ;
+        bulk_load(dst, st.neg_lse2(bh) + i * BQ, BQ * 4, &full[stage]);
+        bulk_load(dst + BQ, st.delta(bh) + i * BQ, BQ * 4, &full[stage]);
+        if (++stage == STAGES) { stage = 0; phase ^= 1; }
+      }
+    }
+    return;
   }
 
-  for (int q0 = 0; q0 < Sq; q0 += BQ) {
-    __syncthreads();  // the previous tile is consumed
-    load_tile<D, KS>(qs, qb, row_stride, q0, Sq, tid);
-    load_tile<D, KS>(gs, gb, row_stride, q0, Sq, tid);
-    for (int i = tid; i < BQ; i += 128) {
-      const int row = q0 + i;
-      const size_t ridx = ((size_t)b * Sq + row) * H + h;
-      lse_s[i] = row < Sq ? lse[ridx] * kLog2e : -INFINITY;
-      dl_s[i] = row < Sq ? delta[ridx] : 0.f;
-    }
-    __syncthreads();
+  // consumer warpgroup c: keys k0 + 64c + 16*warp + gq (+8)
+  setmaxnreg_inc<232>();
+  const int c = tid / 128, warp = (tid % 128) / 32, gq = lane / 4, t = lane % 4;
+  const int kr0 = k0 + 64 * c + 16 * warp + gq, kr1 = kr0 + 8;
+  // keys past Skv are zero-filled by TMA (score 0, not -inf): masked by index
+  const bool ok0 = kr0 < Skv && (mask == nullptr || mask[(size_t)b * Skv + kr0] != 0);
+  const bool ok1 = kr1 < Skv && (mask == nullptr || mask[(size_t)b * Skv + kr1] != 0);
+  const uint32_t k_addr = smem_addr(ks + c * 64 * SPAN), v_addr = smem_addr(vs + c * 64 * SPAN);
+  float adk[D / 2], adv[D / 2];  // dK / scale and dV, keys kr0 (+8), dims 8j + 2t (+1)
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) adk[i] = adv[i] = 0.f;
+  mbar_wait(kvbar, 0);
 
-    // rows of the C fragments are keys (k0, k1), columns queries
-    float s[NQT][4], dp[NQT][4];
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int i = i0; i < i1; ++i) {
+    mbar_wait(&full[stage], phase);
+    const uint32_t q_addr = smem_addr(qs + stage * C::T_BYTES);
+    const uint32_t g_addr = smem_addr(gs + stage * C::T_BYTES);
+    const float* nls = sts + stage * 2 * BQ;
+    const float* dls = nls + BQ;
+    float s[BQ / 2], dp[BQ / 2];  // keys as rows, queries 8j + 2t (+1)
+    wgmma_fence();
 #pragma unroll
-    for (int n = 0; n < NQT; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-      dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<BQ, 0>(s, make_desc<SPAN>(k_addr + kk * 32), make_desc<SPAN>(q_addr + kk * 32),
+                      kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<BQ, 0>(dp, make_desc<SPAN>(v_addr + kk * 32), make_desc<SPAN>(g_addr + kk * 32),
+                      kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(s);
+    fence_operands(dp);
+    uint32_t pa[BQ / 16][4], da[BQ / 16][4];  // P^T and dS^T in bf16
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j) {
+      const float2 nl = *reinterpret_cast<const float2*>(nls + 8 * j + 2 * t);
+      const float2 dl = *reinterpret_cast<const float2*>(dls + 8 * j + 2 * t);
+      const float p00 = ok0 ? ex2(fmaf(s[4 * j], scale_log2, nl.x)) : 0.f;
+      const float p01 = ok0 ? ex2(fmaf(s[4 * j + 1], scale_log2, nl.y)) : 0.f;
+      const float p10 = ok1 ? ex2(fmaf(s[4 * j + 2], scale_log2, nl.x)) : 0.f;
+      const float p11 = ok1 ? ex2(fmaf(s[4 * j + 3], scale_log2, nl.y)) : 0.f;
+      pack_a(pa[j / 2], j, p00, p01, p10, p11);
+      pack_a(da[j / 2], j, p00 * (dp[4 * j] - dl.x), p01 * (dp[4 * j + 1] - dl.y),
+             p10 * (dp[4 * j + 2] - dl.x), p11 * (dp[4 * j + 3] - dl.y));
     }
-#pragma unroll
-    for (int kd = 0; kd < KD; ++kd) {
-#pragma unroll
-      for (int n = 0; n < NQT; ++n) {
-        const __nv_bfloat16* qp = qs + (n * 8 + gq) * KS + kd * 16 + 2 * t;
-        const __nv_bfloat16* gp = gs + (n * 8 + gq) * KS + kd * 16 + 2 * t;
-        mma_bf16(s[n], ka[kd], *reinterpret_cast<const uint32_t*>(qp),
-                 *reinterpret_cast<const uint32_t*>(qp + 8));
-        mma_bf16(dp[n], va[kd], *reinterpret_cast<const uint32_t*>(gp),
-                 *reinterpret_cast<const uint32_t*>(gp + 8));
-      }
-    }
-    // P^T in place of S^T, dS^T in place of dP^T
-#pragma unroll
-    for (int n = 0; n < NQT; ++n) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = n * 8 + 2 * t + e;
-        const float l2 = lse_s[col], dlt = dl_s[col];
-        const bool live = l2 != -INFINITY;
-        const float p0 = (ok0 && live) ? exp2f(fmaf(s[n][e], scale_log2, -l2)) : 0.f;
-        const float p1 = (ok1 && live) ? exp2f(fmaf(s[n][2 + e], scale_log2, -l2)) : 0.f;
-        dp[n][e] = p0 * (dp[n][e] - dlt);
-        dp[n][2 + e] = p1 * (dp[n][2 + e] - dlt);
-        s[n][e] = p0;
-        s[n][2 + e] = p1;
-      }
-    }
+    wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      const uint32_t da[4] = {pack_bf16(dp[2 * kk][0], dp[2 * kk][1]),
-                              pack_bf16(dp[2 * kk][2], dp[2 * kk][3]),
-                              pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
-                              pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
-      const int row = kk * 16 + (lane & 8) + (lane & 7);
-#pragma unroll
-      for (int n = 0; n < NDT; n += 2) {
-        uint32_t gf[4], qf[4];
-        ldmatrix_x4_trans(gf, gs + row * KS + (n + (lane >> 4)) * 8);
-        mma_bf16(adv[n], pa, gf[0], gf[1]);
-        mma_bf16(adv[n + 1], pa, gf[2], gf[3]);
-        ldmatrix_x4_trans(qf, qs + row * KS + (n + (lane >> 4)) * 8);
-        mma_bf16(adk[n], da, qf[0], qf[1]);
-        mma_bf16(adk[n + 1], da, qf[2], qf[3]);
-      }
+      wgmma_rs<D>(adv, pa[kk], make_desc<SPAN>(g_addr + kk * 16 * SPAN), 1);
+      wgmma_rs<D>(adk, da[kk], make_desc<SPAN>(q_addr + kk * 16 * SPAN), 1);
     }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(adv);
+    fence_operands(adk);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[stage]);
+    if (++stage == STAGES) { stage = 0; phase ^= 1; }
   }
 
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    const int key = half ? k1 : k0;
+    const int key = half ? kr1 : kr0;
     if (key >= Skv) continue;
+    const size_t off = (((size_t)b * Skv + key) * H + h) * D;
+    if (part == nullptr) {
 #pragma unroll
-    for (int n = 0; n < NDT; ++n) {
-      *reinterpret_cast<uint32_t*>(dkb + (size_t)key * row_stride + n * 8 + 2 * t) =
-          pack_bf16(adk[n][2 * half] * scale, adk[n][2 * half + 1] * scale);
-      *reinterpret_cast<uint32_t*>(dvb + (size_t)key * row_stride + n * 8 + 2 * t) =
-          pack_bf16(adv[n][2 * half], adv[n][2 * half + 1]);
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<uint32_t*>(dk + off + 8 * j + 2 * t) =
+            pack_bf16(adk[4 * j + 2 * half] * scale, adk[4 * j + 2 * half + 1] * scale);
+        *reinterpret_cast<uint32_t*>(dv + off + 8 * j + 2 * t) =
+            pack_bf16(adv[4 * j + 2 * half], adv[4 * j + 2 * half + 1]);
+      }
+    } else {
+      float* p = part + (size_t)split * 2 * count + off;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<float2*>(p + 8 * j + 2 * t) =
+            make_float2(adk[4 * j + 2 * half], adk[4 * j + 2 * half + 1]);
+        *reinterpret_cast<float2*>(p + count + 8 * j + 2 * t) =
+            make_float2(adv[4 * j + 2 * half], adv[4 * j + 2 * half + 1]);
+      }
     }
   }
+}
+
+// out0 = bf16(scale0 * sum over splits of part[split]), the splits added
+// in order; `count` elements (a multiple of 4) per split, `stride` apart.
+// With out1, the `count` elements after each split's first go to out1
+// (scale1) in the same launch (dK and dV).
+__global__ void __launch_bounds__(256)
+flash_bwd_sum_splits_kernel(const float* __restrict__ part, int splits, size_t count,
+                            size_t stride, float scale0, __nv_bfloat16* __restrict__ out0,
+                            float scale1, __nv_bfloat16* __restrict__ out1) {
+  size_t i = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * 4;
+  const bool second = i >= count;
+  if (second && (out1 == nullptr || i >= 2 * count)) return;
+  const float scale = second ? scale1 : scale0;
+  __nv_bfloat16* out = second ? out1 : out0;
+  if (second) {
+    i -= count;
+    part += count;
+  }
+  float4 a = load4(part + i);
+  for (int s = 1; s < splits; ++s) {
+    const float4 x = load4(part + s * stride + i);
+    a.x += x.x;
+    a.y += x.y;
+    a.z += x.z;
+    a.w += x.w;
+  }
+  *reinterpret_cast<uint2*>(out + i) =
+      make_uint2(pack_bf16(a.x * scale, a.y * scale), pack_bf16(a.z * scale, a.w * scale));
 }
 
 // --- launch --------------------------------------------------------------------
 
 struct Args {
   const void *q, *k, *v, *g;
-  const float *lse, *delta;
   const uint8_t* mask;
+  RowStats st;
   int B, H, Sq, Skv;
   float scale;
   cudaStream_t stream;
 };
 
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || n <= 0)
+      n = 132;
+  }
+  return n;
+}
+
+// How a pass of `ctas` CTAs (one CTA an SM: 384 threads at up to 232
+// registers) splits a walk of `walk` tiles: the fewest splits, each at
+// least `min_tiles` long, whose grid fills its last wave to 85%, else the
+// fullest.  Returns the tiles per split; *splits is the count that needs.
+// A function of the shapes alone, so a call's split, and its bits, repeat.
+// (Measured on the H100: splits of 3-6 tiles, at the 32x32 level, cost
+// more in partials and sums than the fuller waves give back.)
+int plan_splits(int ctas, int walk, int min_tiles, int* splits) {
+  const int sms = sm_count();
+  int best = 1;
+  double best_fill = 0.0;
+  for (int n = 1; n <= kMaxSplits && (n == 1 || n * min_tiles <= walk); ++n) {
+    const int total = ctas * n, waves = (total + sms - 1) / sms;
+    const double fill = (double)total / ((double)waves * sms);
+    if (fill > best_fill + 1e-9) {
+      best = n;
+      best_fill = fill;
+    }
+    if (fill >= 0.85) break;
+  }
+  const int tps = (walk + best - 1) / best;
+  *splits = (walk + tps - 1) / tps;
+  return tps;
+}
+
+struct Plan {
+  int dq_splits, dq_tps, dkv_splits, dkv_tps, sq_pad;
+};
+
+Plan make_plan(int B, int H, int Sq, int Skv, int dtype) {
+  Plan p{1, 0, 1, 0, (Sq + kStatsRows - 1) / kStatsRows * kStatsRows};
+  if (dtype == 1) {  // the bf16 kernels' tiles (the same at every d)
+    using Q = DqCfg<64>;
+    using K = DkvCfg<64>;
+    p.dq_tps = plan_splits((Sq + Q::BQ - 1) / Q::BQ * B * H, (Skv + Q::BKV - 1) / Q::BKV,
+                           kMinSplitRows / Q::BKV, &p.dq_splits);
+    p.dkv_tps = plan_splits((Skv + K::BKV - 1) / K::BKV * B * H, (Sq + K::BQ - 1) / K::BQ,
+                            kMinSplitRows / K::BQ, &p.dkv_splits);
+  }
+  return p;
+}
+
 template <int D, int TPR>
-cudaError_t dq_f32(const Args& a, void* dq) {
+cudaError_t dq_f32(const Args& a, const float* delta, const float* lse, void* dq) {
   const dim3 grid((a.Sq + 128 / TPR - 1) / (128 / TPR), a.B * a.H);
   flash_bwd_dq_kernel<D, TPR><<<grid, 128, 0, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<const float*>(a.g), a.lse, a.delta, a.mask,
-      static_cast<float*>(dq), a.H, a.Sq, a.Skv, a.scale, a.scale * kLog2e);
+      static_cast<const float*>(a.v), static_cast<const float*>(a.g),
+      delta, lse, a.mask, static_cast<float*>(dq), a.st, a.H, a.Sq,
+      a.Skv, a.scale, a.scale * kLog2e);
   return cudaGetLastError();
 }
 
@@ -652,76 +868,146 @@ cudaError_t dkv_f32(const Args& a, void* dk, void* dv) {
   const dim3 grid((a.Skv + 128 / TPR - 1) / (128 / TPR), a.B * a.H);
   flash_bwd_dkv_kernel<D, TPR><<<grid, 128, 0, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<const float*>(a.g), a.lse, a.delta, a.mask,
+      static_cast<const float*>(a.v), static_cast<const float*>(a.g), a.st, a.mask,
       static_cast<float*>(dk), static_cast<float*>(dv), a.H, a.Sq, a.Skv, a.scale,
       a.scale * kLog2e);
   return cudaGetLastError();
 }
 
+// The tensor maps of q and g (boxes of q_rows) and k and v (kv_rows).
 template <int D>
-cudaError_t dq_bf16(const Args& a, void* dq) {
-  const dim3 grid((a.Sq + 63) / 64, a.B * a.H);
-  flash_bwd_dq_mma_kernel<D><<<grid, 128, 0, a.stream>>>(
-      static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
-      static_cast<const __nv_bfloat16*>(a.v), static_cast<const __nv_bfloat16*>(a.g), a.lse,
-      a.delta, a.mask, static_cast<__nv_bfloat16*>(dq), a.H, a.Sq, a.Skv, a.scale,
-      a.scale * kLog2e);
+bool encode_maps(const Args& a, int q_rows, int kv_rows, CUtensorMap* tq, CUtensorMap* tg,
+                 CUtensorMap* tk, CUtensorMap* tv) {
+  constexpr CUtensorMapSwizzle sw = hopper::Swizzle<D * 2>::tma;
+  return hopper::encode_bshd_map(tq, a.q, a.B, a.Sq, a.H, D, D, q_rows, sw) &&
+         hopper::encode_bshd_map(tg, a.g, a.B, a.Sq, a.H, D, D, q_rows, sw) &&
+         hopper::encode_bshd_map(tk, a.k, a.B, a.Skv, a.H, D, D, kv_rows, sw) &&
+         hopper::encode_bshd_map(tv, a.v, a.B, a.Skv, a.H, D, D, kv_rows, sw);
+}
+
+cudaError_t sum_splits(const float* part, int splits, size_t count, size_t stride, float scale0,
+                       void* out0, float scale1, void* out1, cudaStream_t stream) {
+  const size_t n = (out1 == nullptr ? 1 : 2) * count / 4;
+  flash_bwd_sum_splits_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+      part, splits, count, stride, scale0, static_cast<__nv_bfloat16*>(out0), scale1,
+      static_cast<__nv_bfloat16*>(out1));
   return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t dkv_bf16(const Args& a, void* dk, void* dv) {
-  const dim3 grid((a.Skv + 63) / 64, a.B * a.H);
-  flash_bwd_dkv_mma_kernel<D><<<grid, 128, 0, a.stream>>>(
-      static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
-      static_cast<const __nv_bfloat16*>(a.v), static_cast<const __nv_bfloat16*>(a.g), a.lse,
-      a.delta, a.mask, static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), a.H,
-      a.Sq, a.Skv, a.scale, a.scale * kLog2e);
-  return cudaGetLastError();
+cudaError_t dq_bf16(const Args& a, const Plan& p, const void* o, const float* lse, void* dq,
+                    float* work) {
+  using C = DqCfg<D>;
+  CUtensorMap tq, tg, tk, tv;
+  if (!encode_maps<D>(a, C::BQ, C::BKV, &tq, &tg, &tk, &tv)) return cudaErrorInvalidValue;
+  if (p.dq_splits > 1 && work == nullptr) return cudaErrorInvalidValue;
+  static const cudaError_t attr = cudaFuncSetAttribute(  // once per process
+      flash_bwd_dq_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (attr != cudaSuccess) return attr;
+  float* part = p.dq_splits > 1 ? work : nullptr;
+  const dim3 grid((a.Sq + C::BQ - 1) / C::BQ, a.B * a.H, p.dq_splits);
+  flash_bwd_dq_wgmma_kernel<D><<<grid, 384, C::SMEM, a.stream>>>(
+      tq, tg, tk, tv, static_cast<const __nv_bfloat16*>(o),
+      static_cast<const __nv_bfloat16*>(a.g), lse, a.mask, static_cast<__nv_bfloat16*>(dq),
+      part, a.st, a.H, a.Sq, a.Skv, p.dq_tps, a.scale, a.scale * kLog2e);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || part == nullptr) return err;
+  const size_t count = (size_t)a.B * a.Sq * a.H * D;
+  return sum_splits(part, p.dq_splits, count, count, a.scale, dq, 0.f, nullptr, a.stream);
+}
+
+template <int D>
+cudaError_t dkv_bf16(const Args& a, const Plan& p, void* dk, void* dv, float* work) {
+  using C = DkvCfg<D>;
+  CUtensorMap tq, tg, tk, tv;
+  if (!encode_maps<D>(a, C::BQ, C::BKV, &tq, &tg, &tk, &tv)) return cudaErrorInvalidValue;
+  if (p.dkv_splits > 1 && work == nullptr) return cudaErrorInvalidValue;
+  static const cudaError_t attr = cudaFuncSetAttribute(  // once per process
+      flash_bwd_dkv_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (attr != cudaSuccess) return attr;
+  float* part = p.dkv_splits > 1 ? work : nullptr;
+  const dim3 grid((a.Skv + C::BKV - 1) / C::BKV, a.B * a.H, p.dkv_splits);
+  flash_bwd_dkv_wgmma_kernel<D><<<grid, 384, C::SMEM, a.stream>>>(
+      tq, tg, tk, tv, a.st, a.mask, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), part, a.H, a.Sq, a.Skv, p.dkv_tps, a.scale,
+      a.scale * kLog2e);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || part == nullptr) return err;
+  const size_t count = (size_t)a.B * a.Skv * a.H * D;
+  return sum_splits(part, p.dkv_splits, count, 2 * count, a.scale, dk, 1.f, dv, a.stream);
 }
 
 bool valid(int B, int H, int Sq, int Skv) {
   return B > 0 && H > 0 && Sq > 0 && Skv > 0 && B * H <= 65535;
 }
 
+Args make_args(const void* q, const void* k, const void* v, const void* g, const void* mask,
+               void* stats, int B, int H, int Sq, int Skv, float scale, void* stream) {
+  const int sq_pad = (Sq + kStatsRows - 1) / kStatsRows * kStatsRows;
+  return Args{q, k, v, g, static_cast<const uint8_t*>(mask),
+              RowStats{static_cast<float*>(stats), B * H, sq_pad}, B, H, Sq, Skv, scale,
+              static_cast<cudaStream_t>(stream)};
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; D in {16, 32, 64}.  mask may be null.
-// lse and delta are (B, Sq, H) f32.  Each returns the CUDA error of its
-// launch (0 = cudaSuccess); the kernel runs asynchronously on `stream`.
+// The backward's plan at these extents (dtype: 0 = float32, 1 = bfloat16):
+// out[0] / out[1] = the dq / dkv pass's splits (f32 partials of
+// splits * B*Sq*H*D, resp. splits * 2 * B*Skv*H*D floats are needed as
+// `work` when > 1), out[2] = Sq_pad, the row length of the (2, B*H,
+// Sq_pad) f32 row statistics.
+extern "C" int flash_attention_bwd_plan(int B, int H, int Sq, int Skv, int dtype, int* out) {
+  if (!valid(B, H, Sq, Skv) || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
+  const Plan p = make_plan(B, H, Sq, Skv, dtype);
+  out[0] = p.dq_splits;
+  out[1] = p.dkv_splits;
+  out[2] = p.sq_pad;
+  return 0;
+}
+
+// dQ; writes the row statistics `stats` for the dkv pass.  D in {16, 32,
+// 64}; mask may be null; lse is (B, Sq, H) f32.  bf16 computes delta from
+// o, the forward's output; f32 takes `delta` ((B, Sq, H) f32) instead.
+// `work`: f32 scratch of the plan's size (null when the plan has one
+// split).  Returns the CUDA error of the launches (0 = cudaSuccess); the
+// kernels run asynchronously on `stream`.
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
-                                      const void* g, const void* lse, const void* delta,
-                                      const void* mask, void* dq, int B, int H, int Sq,
-                                      int Skv, int D, int dtype, float scale, void* stream) {
+                                      const void* g, const void* o, const void* delta,
+                                      const void* lse, const void* mask, void* dq, void* stats,
+                                      void* work, int B, int H, int Sq, int Skv, int D,
+                                      int dtype, float scale, void* stream) {
   if (!valid(B, H, Sq, Skv)) return (int)cudaErrorInvalidValue;
-  const Args a{q, k, v, g, static_cast<const float*>(lse), static_cast<const float*>(delta),
-               static_cast<const uint8_t*>(mask), B, H, Sq, Skv, scale,
-               static_cast<cudaStream_t>(stream)};
+  const Args a = make_args(q, k, v, g, mask, stats, B, H, Sq, Skv, scale, stream);
+  const float* l = static_cast<const float*>(lse);
   if (dtype == 0) {
+    const float* dl = static_cast<const float*>(delta);
+    if (dl == nullptr) return (int)cudaErrorInvalidValue;
     switch (D) {
-      case 16: return (int)dq_f32<16, 1>(a, dq);
-      case 32: return (int)dq_f32<32, 2>(a, dq);
-      case 64: return (int)dq_f32<64, 4>(a, dq);
+      case 16: return (int)dq_f32<16, 1>(a, dl, l, dq);
+      case 32: return (int)dq_f32<32, 2>(a, dl, l, dq);
+      case 64: return (int)dq_f32<64, 4>(a, dl, l, dq);
     }
   } else if (dtype == 1) {
+    const Plan p = make_plan(B, H, Sq, Skv, dtype);
+    float* w = static_cast<float*>(work);
     switch (D) {
-      case 16: return (int)dq_bf16<16>(a, dq);
-      case 32: return (int)dq_bf16<32>(a, dq);
-      case 64: return (int)dq_bf16<64>(a, dq);
+      case 16: return (int)dq_bf16<16>(a, p, o, l, dq, w);
+      case 32: return (int)dq_bf16<32>(a, p, o, l, dq, w);
+      case 64: return (int)dq_bf16<64>(a, p, o, l, dq, w);
     }
   }
   return (int)cudaErrorInvalidValue;
 }
 
+// dK and dV from the row statistics the dq pass wrote; arguments as
+// `flash_attention_bwd_dq`.
 extern "C" int flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
-                                       const void* g, const void* lse, const void* delta,
-                                       const void* mask, void* dk, void* dv, int B, int H,
-                                       int Sq, int Skv, int D, int dtype, float scale,
-                                       void* stream) {
+                                       const void* g, const void* stats, const void* mask,
+                                       void* dk, void* dv, void* work, int B, int H, int Sq,
+                                       int Skv, int D, int dtype, float scale, void* stream) {
   if (!valid(B, H, Sq, Skv)) return (int)cudaErrorInvalidValue;
-  const Args a{q, k, v, g, static_cast<const float*>(lse), static_cast<const float*>(delta),
-               static_cast<const uint8_t*>(mask), B, H, Sq, Skv, scale,
-               static_cast<cudaStream_t>(stream)};
+  const Args a = make_args(q, k, v, g, mask, const_cast<void*>(stats), B, H, Sq, Skv, scale,
+                           stream);
   if (dtype == 0) {
     switch (D) {
       case 16: return (int)dkv_f32<16, 1>(a, dk, dv);
@@ -729,11 +1015,42 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k, const void*
       case 64: return (int)dkv_f32<64, 4>(a, dk, dv);
     }
   } else if (dtype == 1) {
+    const Plan p = make_plan(B, H, Sq, Skv, dtype);
+    float* w = static_cast<float*>(work);
     switch (D) {
-      case 16: return (int)dkv_bf16<16>(a, dk, dv);
-      case 32: return (int)dkv_bf16<32>(a, dk, dv);
-      case 64: return (int)dkv_bf16<64>(a, dk, dv);
+      case 16: return (int)dkv_bf16<16>(a, p, dk, dv, w);
+      case 32: return (int)dkv_bf16<32>(a, p, dk, dv, w);
+      case 64: return (int)dkv_bf16<64>(a, p, dk, dv, w);
     }
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// Resources of the bf16 kernels at head dim D, kind 0 = dq, 1 = dkv:
+// registers a thread at launch (setmaxnreg then gives the producer
+// warpgroup 40 and the consumers 232), dynamic shared memory in bytes and
+// threads per CTA.  Returns the CUDA error (0 = cudaSuccess).
+extern "C" int flash_attention_bwd_info(int D, int kind, int* regs, int* smem, int* threads) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaErrorInvalidValue;
+#define BWD_INFO(d)                                                              \
+  case d:                                                                        \
+    if (kind == 0) {                                                             \
+      err = cudaFuncGetAttributes(&attr, flash_bwd_dq_wgmma_kernel<d>);          \
+      *smem = DqCfg<d>::SMEM;                                                    \
+    } else if (kind == 1) {                                                      \
+      err = cudaFuncGetAttributes(&attr, flash_bwd_dkv_wgmma_kernel<d>);         \
+      *smem = DkvCfg<d>::SMEM;                                                   \
+    }                                                                            \
+    break;
+  switch (D) {
+    BWD_INFO(16)
+    BWD_INFO(32)
+    BWD_INFO(64)
+  }
+#undef BWD_INFO
+  if (err != cudaSuccess) return (int)err;
+  *regs = attr.numRegs;
+  *threads = 384;
+  return 0;
 }

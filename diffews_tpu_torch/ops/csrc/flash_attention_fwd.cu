@@ -61,6 +61,7 @@
 namespace {
 
 using namespace flash;
+using hopper::TileMeta;
 
 constexpr int kChunk = 16;  // keys per online-softmax update
 
@@ -205,7 +206,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 //
 // A CTA is three warpgroups: two consumers (threads 0-255) and a producer
 // (256-383, of which one warp works).  The producer loads Q once, then
-// walks the KV tiles of its batch row: it reads the tile's mask bytes,
+// walks the KV tiles of its batch row (`hopper::kv_ring_produce`, shared
+// with the backward's dq kernel): it reads the tile's mask bytes,
 // turns them into one bit per key by warp votes (keys at index >= Skv
 // invalid), skips a tile with no valid key outright (no load, no product,
 // no exponential: its running max is unchanged and alpha = 1, so skipping
@@ -217,36 +219,6 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // the online softmax on the S fragments, and release the stage on its
 // "empty" mbarrier.  setmaxnreg moves registers from the producer to the
 // consumers.
-
-struct __align__(16) TileMeta {
-  int tile;           // KV tile index; -1 = no more tiles
-  uint32_t bits[4];   // bit k of word w: key 32w + k of the tile is valid
-};
-
-// The producer warp: key bits of KV tile j (NW words of 32 keys).
-template <int NW>
-__device__ __forceinline__ bool tile_bits(uint32_t (&bits)[NW], const uint8_t* mrow, int j,
-                                          int Skv, int lane) {
-  uint32_t any = 0;
-#pragma unroll
-  for (int w = 0; w < NW; ++w) {
-    const int key = (j * NW + w) * 32 + lane;
-    const bool ok = key < Skv && (mrow == nullptr || mrow[key] != 0);
-    bits[w] = __ballot_sync(0xffffffffu, ok);
-    any |= bits[w];
-  }
-  return any != 0;
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
 
 // New running max (scale*log2e units) from the old one and a tile's raw
 // row max; alpha rescales the old state (1 while no key was valid).
@@ -359,29 +331,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       tma_load_4d(qs, &tq, qbar, 0, h, q0, b);
     }
     const uint8_t* mrow = mask == nullptr ? nullptr : mask + (size_t)b * Skv;
-    const int ntiles = (Skv + BKV - 1) / BKV;
-    int stage = 0;
-    uint32_t phase = 0;
-    for (int j = 0; j < ntiles; ++j) {
-      uint32_t bits[4];
-      if (!tile_bits<4>(bits, mrow, j, Skv, lane)) continue;  // every key masked
-      mbar_wait(&empty[stage], phase ^ 1);
-      if (lane == 0) {
-        meta[stage].tile = j;
-#pragma unroll
-        for (int w = 0; w < 4; ++w) meta[stage].bits[w] = bits[w];
-        mbar_arrive_expect_tx(&full[stage], 2 * C::KV_BYTES);
-        tma_load_4d(ks + stage * C::KV_BYTES, &tk, &full[stage], 0, h, j * BKV, b);
-        tma_load_4d(vs + stage * C::KV_BYTES, &tv, &full[stage], 0, h, j * BKV, b);
-      }
-      __syncwarp();
-      if (++stage == STAGES) { stage = 0; phase ^= 1; }
-    }
-    mbar_wait(&empty[stage], phase ^ 1);
-    if (lane == 0) {
-      meta[stage].tile = -1;
-      mbar_arrive(&full[stage]);
-    }
+    kv_ring_produce<STAGES, BKV>(&tk, &tv, ks, vs, C::KV_BYTES, meta, full, empty, mrow, h, b,
+                                 0, (Skv + BKV - 1) / BKV, Skv, lane);
     return;
   }
 

@@ -1,6 +1,7 @@
-// Helpers shared by the flash-attention kernels (forward and backward):
+// Helpers shared by the port's kernels (flash attention, the convs):
 // bf16 tensor-core products (mma.sync m16n8k16, f32 accumulate), ldmatrix
-// loads of 8x8 bf16 tiles from shared memory, and bf16 packing.
+// loads of 8x8 bf16 tiles from shared memory, bf16 packing, and reductions
+// over the four lanes of a quad (the lanes that share an accumulator row).
 //
 // Fragment layouts of mma.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A 16x16: a0 (row g, cols 2t..2t+1), a1 (row g+8), a2 (row g, cols +8),
@@ -40,16 +41,19 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
                : "r"(addr));
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&x);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 __device__ __forceinline__ float4 load4(const float* p) {

@@ -2,8 +2,12 @@
 //
 //  - mbarrier ops (init, arrive, arrive with an expected transaction
 //    count, parity wait) for producer/consumer rings in shared memory;
-//  - TMA: 4-D tiled loads into shared memory that complete on an mbarrier,
-//    and the host-side tensor map of a contiguous (B, S, H, D) tensor;
+//  - TMA: 4-D tiled loads and plain bulk copies into shared memory that
+//    complete on an mbarrier, and the host-side tensor map of a contiguous
+//    (B, S, H, D) tensor;
+//  - the producer warp of a key/value ring (flash forward, flash dq): it
+//    votes over each tile's key-mask bytes, skips tiles with no valid key
+//    and hands the key bits over beside the tile;
 //  - wgmma: shared-memory matrix descriptors, fence / commit / wait, and
 //    the bf16 m64nNk16 products the kernels use (f32 accumulate), with A
 //    from shared memory ("ss") or from registers ("rs");
@@ -86,6 +90,18 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
+      : "memory");
+}
+
+// Copy `bytes` (a multiple of 16, both addresses 16-byte aligned) from
+// global to shared memory; completes `bytes` of the transaction count on
+// `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes),
+      "r"(smem_addr(bar))
       : "memory");
 }
 
@@ -218,6 +234,24 @@ __device__ __forceinline__ void wgmma_ss<128, 0>(float (&d)[64], uint64_t da, ui
 }
 
 template <>
+__device__ __forceinline__ void wgmma_ss<64, 0>(float (&d)[32], uint64_t da, uint64_t db,
+                                               int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
 __device__ __forceinline__ void wgmma_ss<32, 0>(float (&d)[16], uint64_t da, uint64_t db,
                                                 int scale_d) {
   asm volatile(
@@ -344,6 +378,70 @@ __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
+}
+
+// --- the key/value ring's producer warp --------------------------------------
+
+// What the producer hands over beside a stage's K and V tiles.
+struct __align__(16) TileMeta {
+  int tile;           // KV tile index; -1 = no more tiles
+  uint32_t bits[4];   // bit k of word w: key 32w + k of the tile is valid
+};
+
+// The producer warp: key bits of KV tile j (NW words of 32 keys); keys at
+// index >= Skv are invalid.  Returns whether any key of the tile is valid.
+template <int NW>
+__device__ __forceinline__ bool tile_bits(uint32_t (&bits)[NW], const uint8_t* mrow, int j,
+                                          int Skv, int lane) {
+  uint32_t any = 0;
+#pragma unroll
+  for (int w = 0; w < NW; ++w) {
+    const int key = (j * NW + w) * 32 + lane;
+    const bool ok = key < Skv && (mrow == nullptr || mrow[key] != 0);
+    bits[w] = __ballot_sync(0xffffffffu, ok);
+    any |= bits[w];
+  }
+  return any != 0;
+}
+
+// One warp walks KV tiles [j0, j1) of batch row b, head h (tiles of BKV
+// keys, `kv_bytes` each for K and V).  A tile with no valid key is skipped
+// outright: no load, and the consumers never see it.  Otherwise the warp
+// waits for a free stage of the STAGES-deep ring ("empty"), writes the
+// tile index and key bits into the stage's TileMeta and issues the TMA
+// loads of K and V, which complete on the stage's "full" mbarrier.  After
+// the last tile it hands over a stage with tile index -1.  Its first pass
+// over the ring waits on the flipped parity, so it does not block.
+template <int STAGES, int BKV>
+__device__ __forceinline__ void kv_ring_produce(const CUtensorMap* tk, const CUtensorMap* tv,
+                                                uint8_t* ks, uint8_t* vs, int kv_bytes,
+                                                TileMeta* meta, uint64_t* full, uint64_t* empty,
+                                                const uint8_t* mrow, int h, int b, int j0,
+                                                int j1, int Skv, int lane) {
+  static_assert(BKV % 32 == 0 && BKV <= 128, "TileMeta holds at most 128 key bits");
+  constexpr int NW = BKV / 32;
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int j = j0; j < j1; ++j) {
+    uint32_t bits[NW];
+    if (!tile_bits<NW>(bits, mrow, j, Skv, lane)) continue;  // every key masked
+    mbar_wait(&empty[stage], phase ^ 1);
+    if (lane == 0) {
+      meta[stage].tile = j;
+#pragma unroll
+      for (int w = 0; w < NW; ++w) meta[stage].bits[w] = bits[w];
+      mbar_arrive_expect_tx(&full[stage], 2 * kv_bytes);
+      tma_load_4d(ks + stage * kv_bytes, tk, &full[stage], 0, h, j * BKV, b);
+      tma_load_4d(vs + stage * kv_bytes, tv, &full[stage], 0, h, j * BKV, b);
+    }
+    __syncwarp();
+    if (++stage == STAGES) { stage = 0; phase ^= 1; }
+  }
+  mbar_wait(&empty[stage], phase ^ 1);
+  if (lane == 0) {
+    meta[stage].tile = -1;
+    mbar_arrive(&full[stage]);
+  }
 }
 
 }  // namespace hopper

@@ -32,6 +32,7 @@ one: every query row keeps its own tokens).
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -215,57 +216,111 @@ def flash_attention_bwd_reference(q, k, v, kv_mask, out, lse, g, scale):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _check_bwd(q, k, v, g, lse, delta, kv_mask):
+def _check_bwd(q, k, v, g, lse, out, kv_mask):
     _check(q, k, v, kv_mask)
     b, sq, h, d = q.shape
     if d not in BWD_HEAD_DIMS:
         raise ValueError(f"flash backward has no head dim {d} (built: {BWD_HEAD_DIMS})")
-    if g.shape != q.shape or g.dtype != q.dtype or not g.is_contiguous():
-        raise ValueError(f"g must be contiguous {tuple(q.shape)} {q.dtype}; got "
-                         f"{tuple(g.shape)} {g.dtype}")
-    for name, t in (("lse", lse), ("delta", delta)):
-        if t.shape != (b, sq, h) or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous (B, Sq, H) float32 tensor; "
-                             f"got {t.dtype} {tuple(t.shape)}")
-    for name, t in (("g", g), ("lse", lse), ("delta", delta)):
+    for name, t in (("g", g), ("out", out)):
+        if t.shape != q.shape or t.dtype != q.dtype or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous {tuple(q.shape)} {q.dtype}; got "
+                             f"{tuple(t.shape)} {t.dtype}")
+    if lse.shape != (b, sq, h) or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError(f"lse must be a contiguous (B, Sq, H) float32 tensor; "
+                         f"got {lse.dtype} {tuple(lse.shape)}")
+    for name, t in (("g", g), ("out", out), ("lse", lse)):
         if t.device != q.device or t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned on {q.device}")
 
 
-def _bwd_call(fn_name, n_out, q, k, v, g, lse, delta, scale, kv_mask, outs):
+@functools.lru_cache(maxsize=None)
+def _bwd_fn(name, n_ptr):
     from diffews_tpu_torch.ops import _build
 
-    _check_bwd(q, k, v, g, lse, delta, kv_mask)
-    fn = getattr(_build.load("flash_attention_bwd"), fn_name)
+    fn = getattr(_build.load("flash_attention_bwd"), name)
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * (7 + n_out) + [ctypes.c_int] * 6
-                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 6 + [ctypes.c_float,
+                                                                     ctypes.c_void_p]
+    return fn
+
+
+def _bwd_plan(q, k):
+    """(dq splits, dkv splits, Sq_pad) of the kernels at these extents: the
+    split passes need f32 scratch; the row statistics are (2, B·H, Sq_pad)."""
+    b, sq, h, _ = q.shape
+    return _bwd_plan_at(b, h, sq, k.shape[1], _DTYPE_CODE[q.dtype], q.device)
+
+
+@functools.lru_cache(maxsize=1024)
+def _bwd_plan_at(b, h, sq, skv, dtype_code, device):
+    from diffews_tpu_torch.ops import _build
+
+    fn = _build.load("flash_attention_bwd").flash_attention_bwd_plan
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    out = (ctypes.c_int * 3)()
+    with torch.cuda.device(device):
+        err = fn(b, h, sq, skv, dtype_code, ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd_plan failed: CUDA error {err}")
+    return tuple(out)
+
+
+def _bwd_launch(fn, name, ptrs, q, k, scale):
     b, sq, h, d = q.shape
     with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
-                 delta.data_ptr(), None if kv_mask is None else kv_mask.data_ptr(),
-                 *(t.data_ptr() for t in outs), b, h, sq, k.shape[1], d,
-                 _DTYPE_CODE[q.dtype], float(scale),
+        err = fn(*ptrs, b, h, sq, k.shape[1], d, _DTYPE_CODE[q.dtype], float(scale),
                  torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{fn_name} launch failed: CUDA error {err}")
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
-def flash_attention_bwd_dq(q, k, v, g, lse, delta, *, scale: float,
-                           kv_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """dQ on the card (the dq kernel); delta = rowsum(O∘g), (B, Sq, H) f32."""
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def flash_attention_bwd_dq(q, k, v, g, out, lse, *, scale: float,
+                           kv_mask: Optional[torch.Tensor] = None):
+    """dQ on the card (the dq kernel), from the forward's O (`out`) and LSE.
+    Returns (dq, stats): stats, (2, B·H, Sq_pad) f32, holds each row's
+    −LSE·log2(e) and δ = rowsum(O∘g) for the dkv pass
+    (`flash_attention_bwd_dkv`).  The bf16 kernel computes δ itself; the f32
+    kernel takes it from torch, as the plain version computes it, so f32
+    gradients keep the plain path's rounding."""
+    _check_bwd(q, k, v, g, lse, out, kv_mask)
+    splits, _, sq_pad = _bwd_plan(q, k)
+    b, sq, h, d = q.shape
     dq = torch.empty_like(q)
-    _bwd_call("flash_attention_bwd_dq", 1, q, k, v, g, lse, delta, scale, kv_mask, (dq,))
+    stats = torch.empty((2, b * h, sq_pad), dtype=torch.float32, device=q.device)
+    work = (torch.empty((splits, b, sq, h, d), dtype=torch.float32, device=q.device)
+            if splits > 1 else None)
+    delta = (out.float() * g.float()).sum(-1) if q.dtype == torch.float32 else None
+    _bwd_launch(_bwd_fn("flash_attention_bwd_dq", 11), "flash_attention_bwd_dq",
+                (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), out.data_ptr(),
+                 _ptr(delta), lse.data_ptr(), _ptr(kv_mask), dq.data_ptr(), stats.data_ptr(),
+                 _ptr(work)), q, k, scale)
     flash_attention_bwd.dq_launches += 1
-    return dq
+    return dq, stats
 
 
-def flash_attention_bwd_dkv(q, k, v, g, lse, delta, *, scale: float,
+def flash_attention_bwd_dkv(q, k, v, g, stats, *, scale: float,
                             kv_mask: Optional[torch.Tensor] = None):
-    """(dK, dV) on the card (the dkv kernel); arguments as
-    `flash_attention_bwd_dq`."""
+    """(dK, dV) on the card (the dkv kernel), from the row statistics that
+    `flash_attention_bwd_dq` returned for the same call."""
+    _check(q, k, v, kv_mask)
+    _, splits, sq_pad = _bwd_plan(q, k)
+    b, sq, h, d = q.shape
+    if (stats.shape != (2, b * h, sq_pad) or stats.dtype != torch.float32
+            or not stats.is_contiguous() or stats.device != q.device):
+        raise ValueError(f"stats must be the (2, B·H, Sq_pad) float32 tensor of the dq "
+                         f"pass; got {stats.dtype} {tuple(stats.shape)}")
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _bwd_call("flash_attention_bwd_dkv", 2, q, k, v, g, lse, delta, scale, kv_mask, (dk, dv))
+    work = (torch.empty((splits, 2, b, k.shape[1], h, d), dtype=torch.float32,
+                        device=q.device) if splits > 1 else None)
+    _bwd_launch(_bwd_fn("flash_attention_bwd_dkv", 9), "flash_attention_bwd_dkv",
+                (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), stats.data_ptr(),
+                 _ptr(kv_mask), dk.data_ptr(), dv.data_ptr(), _ptr(work)),
+                q, k, scale)
     flash_attention_bwd.dkv_launches += 1
     return dk, dv
 
@@ -274,21 +329,15 @@ def flash_attention_bwd(q, k, v, out, lse, g, *, scale: float,
                         kv_mask: Optional[torch.Tensor] = None):
     """Gradients (dq, dk, dv) of `flash_attention` given the forward's O and
     LSE and the output gradient g; shapes as `flash_attention_bwd_reference`.
-    A CUDA tensor launches the dq and dkv kernels, a CPU tensor takes the
-    plain version."""
+    A CUDA tensor launches the dq kernel (which, in bf16, also computes δ)
+    and the dkv kernel, a CPU tensor takes the plain version."""
     g = g.contiguous()
     if q.device.type == "cpu":
         return flash_attention_bwd_reference(q, k, v, kv_mask, out, lse, g, scale)
     if q.device.type != "cuda":
         raise ValueError(f"no flash attention backward for device {q.device}")
-    if out.shape != q.shape or out.dtype != q.dtype:
-        raise ValueError(f"out must be {tuple(q.shape)} {q.dtype}; got "
-                         f"{tuple(out.shape)} {out.dtype}")
-    # δ = rowsum(O∘g) in plain torch, as the JAX package computes it outside
-    # its kernels
-    delta = (out.float() * g.float()).sum(-1)
-    dq = flash_attention_bwd_dq(q, k, v, g, lse, delta, scale=scale, kv_mask=kv_mask)
-    dk, dv = flash_attention_bwd_dkv(q, k, v, g, lse, delta, scale=scale, kv_mask=kv_mask)
+    dq, stats = flash_attention_bwd_dq(q, k, v, g, out, lse, scale=scale, kv_mask=kv_mask)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, g, stats, scale=scale, kv_mask=kv_mask)
     return dq, dk, dv
 
 

@@ -8,7 +8,9 @@ backward is that plain version) against `jax.vjp` through the JAX
 `tests/test_flash_attention.py` runs them).  f32 to 1e-4; bf16 inputs
 within 3e-2 of max |grad| (`test_flash_attention.py:78-107`).  Also the
 repair of a silent fault: gradients reach q, k and v through
-`fused_kv_attention(impl="auto")`.
+`fused_kv_attention(impl="auto")`; and the plain backward against the
+Pallas backward at the mask and extent patterns the CUDA kernels' tiles
+meet (whole 64- and 128-key tiles masked, tails, a row with no valid key).
 """
 
 import jax
@@ -143,7 +145,7 @@ def test_forward_only_entry_and_no_grad_paths_stay_plain():
 
 
 @pytest.mark.parametrize("bad", ["head_dim", "g_shape", "g_dtype", "g_noncontig", "lse_shape",
-                                 "lse_dtype", "delta_shape"])
+                                 "lse_dtype", "out_shape"])
 def test_backward_wrapper_rejects(bad):
     """The backward kernels' checks (shared by every dq/dkv launch) refuse
     what the kernels do not take, such as the VAE's d = 512."""
@@ -151,7 +153,8 @@ def test_backward_wrapper_rejects(bad):
     q = torch.zeros(1, 8, 2, d)
     k = v = torch.zeros(1, 12, 2, d)
     g = torch.zeros(1, 8, 2, d)
-    lse = delta = torch.zeros(1, 8, 2)
+    out = torch.zeros(1, 8, 2, d)
+    lse = torch.zeros(1, 8, 2)
     if bad == "g_shape":
         g = torch.zeros(1, 9, 2, d)
     elif bad == "g_dtype":
@@ -162,7 +165,58 @@ def test_backward_wrapper_rejects(bad):
         lse = torch.zeros(1, 2, 8)
     elif bad == "lse_dtype":
         lse = lse.double()
-    elif bad == "delta_shape":
-        delta = torch.zeros(1, 8)
+    elif bad == "out_shape":
+        out = torch.zeros(1, 8, 2, d // 2)
     with pytest.raises(ValueError):
-        TF._check_bwd(q, k, v, g, lse, delta, None)
+        TF._check_bwd(q, k, v, g, lse, out, None)
+    if bad == "head_dim":
+        return
+    TF._check_bwd(q, k, v, torch.zeros(1, 8, 2, d), torch.zeros(1, 8, 2), torch.zeros(1, 8, 2, d),
+                  None)  # the same call with every argument right passes
+
+
+def _mask_pattern(b, skv, pattern):
+    m = np.ones((b, skv), bool)
+    if pattern == "tile64":      # one whole 64-key tile masked
+        m[:, 64:128] = False
+    elif pattern == "tile128":   # one whole 128-key tile masked, and the tail
+        m[:, 128:256] = False
+        m[:, 290:] = False
+    elif pattern == "partial":   # set partly inside every tile
+        m &= np.random.default_rng(50).random((b, skv)) > 0.5
+        m[:, 0] = True
+    elif pattern == "empty_row":  # batch row 1 has no valid key
+        m[:, 200:] = False
+        m[1] = False
+    return m
+
+
+@pytest.mark.parametrize("sq,skv", [(70, 300), (130, 193)])
+@pytest.mark.parametrize("pattern", ["tile64", "tile128", "partial", "empty_row"])
+def test_plain_backward_at_tile_patterns(sq, skv, pattern):
+    """The plain backward, which the kernels are held to on the card,
+    against the Pallas backward (`_flash_backward` through the JAX custom
+    VJP, interpret mode) at the patterns the kernels' tile skipping touches:
+    whole 64- and 128-key tiles masked, Sq and Skv off the kernels' tile
+    multiples, a row with no valid key.  Such a row differs by design: the
+    JAX kernels add a -1e30 bias (uniform weights over the masked keys),
+    the port gives p = 0 exactly (dQ = 0, nothing to dK / dV), so that batch
+    row is held to the port's rule and the others to JAX."""
+    b, h, d = 2, 2, 16
+    q, g = _x(b, sq, h, d, seed=51), _x(b, sq, h, d, seed=52)
+    k, v = _x(b, skv, h, d, seed=53), _x(b, skv, h, d, seed=54)
+    mask = _mask_pattern(b, skv, pattern)
+    want = _jax_vjp(lambda q, k, v: JF.flash_attention(q, k, v, kv_mask=jnp.asarray(mask)),
+                    [jnp.asarray(a) for a in (q, k, v)], jnp.asarray(g))
+    tq, tk, tv, tg = (_t(a) for a in (q, k, v, g))
+    tm = _t(mask, torch.bool)
+    out, lse = TF.flash_attention_reference(tq, tk, tv, kv_mask=tm)
+    got = TF.flash_attention_bwd_reference(tq, tk, tv, tm, out, lse, tg, d ** -0.5)
+    rows = [1] if pattern == "empty_row" else []
+    keep = [i for i in range(b) if i not in rows]
+    for a, w in zip(got, want):
+        np.testing.assert_allclose(a.numpy()[keep], w[keep], rtol=1e-4, atol=1e-4)
+    dead = ~tm[:, :, None, None].expand_as(got[1])
+    assert torch.all(got[1][dead] == 0) and torch.all(got[2][dead] == 0)
+    for i in rows:
+        assert torch.all(got[0][i] == 0) and torch.all(got[1][i] == 0) and torch.all(got[2][i] == 0)

@@ -1,5 +1,6 @@
-"""The port stands alone: `diffews_tpu_torch/` and `chip_smoke.py` import
-neither `jax`, `optax` nor the JAX package, and the pipeline refuses to
+"""The port stands alone: `diffews_tpu_torch/`, `chip_smoke.py` and the
+kernel A/B tools (`tools/cuda_*.py`) import neither `jax`, `optax` nor the
+JAX package, and the pipeline refuses to
 fall back to the CPU on a host without a CUDA device."""
 
 import ast
@@ -17,7 +18,8 @@ ROOT = Path(__file__).resolve().parents[1]
 
 
 def _port_sources():
-    files = sorted((ROOT / "diffews_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = (sorted((ROOT / "diffews_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             + sorted((ROOT / "tools").glob("cuda_*.py")))
     assert len(files) > 10
     return files
 
