@@ -10,9 +10,11 @@ Phases, each of which fails the run (non-zero exit) on any error:
   1. device: the card's name and power limit (`nvidia-smi`);
   2. build: compile every `diffews_tpu_torch/ops/csrc/*.cu` with nvcc (one
      process each, started together), print ptxas's registers/spills,
-     and report the bf16 flash forward's and backward's (dq, dkv)
-     registers, shared memory and their SASS's wgmma (HGMMA), TMA
-     (UTMALDG) and mma.sync (HMMA) instructions;
+     and report the bf16 wgmma kernels' (flash forward, backward dq and
+     dkv, fused conv, downsample) registers, shared memory and their
+     SASS's wgmma (HGMMA), TMA (UTMALDG) and mma.sync (HMMA) instructions;
+     the fused-conv and downsample libraries must hold HGMMA and UTMALDG
+     and no HMMA;
   3. kernel: the flash-attention forward kernel against its plain version
      at every shape a 512px episode gives it, in f32 (TF32 off) and bf16,
      O and LSE, with kernel / plain / `F.scaled_dot_product_attention`
@@ -33,7 +35,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
      plain version at every shape the fused VAE gives it at 512px (encode
      B = 12, decode B = 4), f32 (TF32 off) and bf16, statistics against a
      fresh sum of its output, bit-identical repeats, with kernel / plain /
-     cuDNN `F.conv2d` times and the bounds;
+     cuDNN `F.conv2d` times, TFLOP/s and the share of the bound;
   7. downsample: the 3x3 stride-2 downsample kernel through its entry point
      `downsample_conv2x` on the inputs and weights of the VAE encoder's
      three Downsample2D, recorded from the encoder of a 512px episode at
@@ -41,7 +43,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
      counted and held against the encoder's own outputs, then kernel
      against plain version in f32 (TF32 off) and bf16, each image alone
      against its batch row, bit-identical repeats, with kernel / plain /
-     cuDNN (`F.pad` + `F.conv2d`) times and the bounds;
+     cuDNN (`F.pad` + `F.conv2d`) times, TFLOP/s and the share of the
+     bound;
   8. tiny: tiny-config f32 episodes on the card (kernels) against the same
      episodes on the CPU (plain versions), under `vae_impl` "xla",
      "fused", "mixed" (threshold lowered) and "auto"; and cached-support
@@ -55,9 +58,11 @@ Phases, each of which fails the run (non-zero exit) on any error:
      the 1-shot batch-4 episode under `vae_impl` "xla" (34 flash, 94 + 94
      GroupNorm launches per `predict`), "fused" (44 + 44 GroupNorm, 50
      fused) and "mixed", and a batch-1 episode under "auto", each timed and
-     profiled; a 5-shot episode with two padded shots against the 3-shot
-     episode, under "xla" and "fused"; the f32 (TF32 off) fused-vs-xla VAE
-     encode and decode;
+     profiled, with each one's device busy and fused-conv device time; b1
+     "auto" against b1 "xla" in turns, three runs each (walls, busy); a
+     5-shot episode with two padded shots against the 3-shot episode,
+     under "xla" and "fused"; the f32 (TF32 off) fused-vs-xla VAE encode
+     and decode;
  11. cached: cached-support serving at the same widths, bf16, 512px, under
      `vae_impl` "xla" and "auto": `precompute_supports` for a 1-shot and a
      5-shot (two padded) support set (33 flash launches each) and
@@ -187,15 +192,22 @@ def phase_build():
     check(bwd["sass"] == {} or (bwd["sass"]["HGMMA"] > 0 and bwd["sass"]["UTMALDG"] > 0
                                 and bwd["sass"]["HMMA"] == 0),
           f"the flash backward library must hold HGMMA and UTMALDG and no HMMA: {bwd['sass']}")
+    for name in ("fused_resnet", "downsample"):
+        RESULTS[f"{name}_build"] = conv = flash_resources(_build, name)
+        emit({"phase": f"build_{name}", **conv})
+        check(conv["sass"] == {} or (conv["sass"]["HGMMA"] > 0 and conv["sass"]["UTMALDG"] > 0
+                                     and conv["sass"]["HMMA"] == 0),
+              f"the {name} library must hold HGMMA and UTMALDG and no HMMA: {conv['sass']}")
 
 
 def flash_resources(_build, name: str) -> dict:
-    """The bf16 flash kernels' registers a thread at launch, dynamic shared
-    memory and threads per CTA (from the library: `flash_attention_fwd_info`
-    at each head dim, `flash_attention_bwd_info` for dq and dkv), and the
-    counts of wgmma (HGMMA), TMA-load (UTMALDG) and mma.sync (HMMA)
-    instructions in its SASS (`cuobjdump -sass`, where the toolkit has it;
-    else {})."""
+    """A library's bf16 wgmma kernels' registers a thread at launch, dynamic
+    shared memory and threads per CTA (from the library:
+    `flash_attention_fwd_info` at each head dim, `flash_attention_bwd_info`
+    for dq and dkv, `fused_resnet_info` for BN 128 and the heads' BN 8,
+    `downsample_info`), and the counts of wgmma (HGMMA), TMA-load (UTMALDG)
+    and mma.sync (HMMA) instructions in its SASS (`cuobjdump -sass`, where
+    the toolkit has it; else {})."""
     import ctypes
     import shutil
 
@@ -204,9 +216,14 @@ def flash_resources(_build, name: str) -> dict:
     if name == "flash_attention_fwd":
         calls = {f"d{d}": (lambda *r, d=d: lib.flash_attention_fwd_info(d, *r))
                  for d in (16, 32, 64, 512)}
-    else:
+    elif name == "flash_attention_bwd":
         calls = {f"{kind}_d{d}": (lambda *r, d=d, i=i: lib.flash_attention_bwd_info(d, i, *r))
                  for i, kind in enumerate(("dq", "dkv")) for d in (16, 32, 64)}
+    elif name == "fused_resnet":
+        calls = {f"bn{bn}": (lambda *r, i=i: lib.fused_resnet_info(i, *r))
+                 for i, bn in enumerate((128, 8))}
+    else:
+        calls = {"bn128": lambda *r: lib.downsample_info(0, *r)}
     for key, call in calls.items():
         regs, smem, threads = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
         err = call(ctypes.byref(regs), ctypes.byref(smem), ctypes.byref(threads))
@@ -678,7 +695,8 @@ def phase_fused(fr_shapes):
                    "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                    "bound_ms": max(t_ops, t_mem) * 1e3,
                    "bound_by": "operations" if t_ops >= t_mem else "bytes",
-                   "tflops": flops / ms / 1e9, "ok": ok}
+                   "tflops": flops / ms / 1e9, "share_of_bound": max(t_ops, t_mem) * 1e3 / ms,
+                   "ok": ok}
             rows.append(row)
             emit(row)
             check(ok, f"fused resnet kernel disagrees with the plain version at {key} {name}: "
@@ -771,7 +789,8 @@ def phase_downsample(recorded):
                    "image_alone_equals_batch_row": alone, "ms": ms, "plain_ms": plain_ms,
                    "library_ms": lib_ms, "bound_ms": max(t_ops, t_mem) * 1e3,
                    "bound_by": "operations" if t_ops >= t_mem else "bytes",
-                   "tflops": flops / ms / 1e9, "gbytes_per_s": nbytes / ms / 1e6, "ok": ok}
+                   "tflops": flops / ms / 1e9, "gbytes_per_s": nbytes / ms / 1e6,
+                   "share_of_bound": max(t_ops, t_mem) * 1e3 / ms, "ok": ok}
             rows.append(row)
             emit(row)
             check(ok, f"downsample kernel disagrees with the plain version at "
@@ -1068,9 +1087,9 @@ def _kernel_class(name: str) -> str:
         return "gn_stats (B4a)"
     if "gn_apply" in n:
         return "gn_apply (B4b)"
-    if "conv_mma_kernel" in n or "conv_f32_kernel" in n:
+    if "conv_wgmma_kernel" in n or "conv_f32_kernel" in n:
         return "fused_gn_silu_conv3x3 (B5)"
-    if "down_mma_kernel" in n or "down_f32_kernel" in n:
+    if "down_wgmma_kernel" in n or "down_f32_kernel" in n:
         return "downsample_conv2x (B6)"
     if "sum_partials" in n:
         return "statistics partial sums (B4a, B5)"
@@ -1227,6 +1246,38 @@ def phase_full(card):
     res["one_shot_b1_auto"] = rec
     emit({"phase": "full_1shot_b1_512px_bf16_auto",
           **{k: v for k, v in rec.items() if k != "profile"}})
+    # b1: "auto" (fused encode, the card's rule for <= 4 images) against
+    # "xla", in turns, three runs each: walls and device busy
+    b1_cmp = {"auto": [], "xla": []}
+    for rnd in range(3):
+        for vi in (("auto", "xla") if rnd % 2 == 0 else ("xla", "auto")):
+            _, r1 = _timed_episode(pipe, vi, (q[:1], sup[:1], m[:1]),
+                                   "auto_b1" if vi == "auto" else "xla", card)
+            b1_cmp[vi].append({"wall_s": r1["wall_s"],
+                               "device_busy_ms": r1["profile"].get("device_busy_ms"),
+                               "fused_conv_ms": (r1["profile"].get("device_ms_by_class") or {})
+                               .get("fused_gn_silu_conv3x3 (B5)", 0.0)
+                               if isinstance(r1["profile"].get("device_ms_by_class"), dict)
+                               else None})
+    b1_sum = {vi: {"wall_s_median": statistics.median(w for r in runs for w in r["wall_s"]),
+                   "device_busy_ms": [r["device_busy_ms"] for r in runs],
+                   "fused_conv_ms": [r["fused_conv_ms"] for r in runs]}
+              for vi, runs in b1_cmp.items()}
+    res["b1_auto_vs_xla"] = {"runs": b1_cmp, "summary": b1_sum, "card": card}
+    emit({"phase": "full_1shot_b1_512px_bf16_auto_vs_xla", **b1_sum, "card": card})
+
+    # device busy per episode, and the fused conv's part of it
+    busy = {}
+    for label, key in (("xla", "one_shot_b4"), ("fused", "one_shot_b4_fused"),
+                       ("mixed", "one_shot_b4_mixed"), ("auto_b1", "one_shot_b1_auto")):
+        prof = res[key]["profile"]
+        by_class = prof.get("device_ms_by_class")
+        fused_ms = by_class.get("fused_gn_silu_conv3x3 (B5)", 0.0) if isinstance(by_class, dict) \
+            else None
+        busy[label] = {"device_busy_ms": prof.get("device_busy_ms"), "fused_conv_ms": fused_ms,
+                       "wall_s_median": res[key]["wall_s_median"]}
+    res["device_busy"] = busy
+    emit({"phase": "full_device_busy_512px_bf16", **busy, "card": card})
 
     # (b) 5-shot, batch 1, shots 4 and 5 padded by shot_mask: under "xla"
     # and "fused" their content changes no bit of the bf16 prediction
@@ -1810,6 +1861,14 @@ def kernel_record(rows, bwd_rows, norm_rows, fused_rows, down_rows, episode_laun
         "max_abs_err": max(r["max_abs_err"] for r in fused_rows),
         "ms": fmain["ms"], "plain_ms": fmain["plain_ms"], "bound_ms": fmain["bound_ms"],
         "bound_by": fmain["bound_by"], "library_ms": fmain["library_ms"],
+        "tflops": fmain["tflops"], "share_of_bound": fmain["share_of_bound"],
+        "design": "bf16: persistent implicit GEMM on the shared wgmma core (conv_common.cuh): "
+                  "16x16-pixel tiles, weights by TMA (all nine taps of a 16-channel chunk), "
+                  "the halo patch by cp.async from a producer warpgroup, two wgmma consumer "
+                  "warpgroups (A: the patch's no-swizzle core-matrix windows, one per tap) "
+                  "that apply affine + SiLU to chunk k+1's patch in place while chunk k's "
+                  "products run, residual staged in shared memory, 16-byte output stores; "
+                  "BN 128, heads BN 8; f32: FMA kernel",
         "shape": "B12 512x512 128->128 with residual, bf16; library_ms is cuDNN's conv "
                  "alone (F.conv2d with bias)"})
     out.append({
@@ -1820,6 +1879,12 @@ def kernel_record(rows, bwd_rows, norm_rows, fused_rows, down_rows, episode_laun
         "max_abs_err": max(r["max_abs_err"] for r in down_rows),
         "ms": dmain["ms"], "plain_ms": dmain["plain_ms"], "bound_ms": dmain["bound_ms"],
         "bound_by": dmain["bound_by"], "library_ms": dmain["library_ms"],
+        "tflops": dmain["tflops"], "share_of_bound": dmain["share_of_bound"],
+        "design": "bf16: persistent implicit GEMM on the shared wgmma core (conv_common.cuh): "
+                  "16x16 output tiles, weights by TMA, the 33x33 stride-2 patch (even columns "
+                  "before odd) by cp.async that arrives on the stage's mbarrier as it lands, "
+                  "two wgmma consumer warpgroups, N blocks of a tile adjacent in the walk; "
+                  "f32: FMA kernel",
         "shape": "B12 512x512 128->128 bf16 (the encoder's first downsample); launches: "
                  "the entry point on the encoder's three B = 12 inputs, 0 on every "
                  "pipeline path (no model calls the op, as in the JAX package); "

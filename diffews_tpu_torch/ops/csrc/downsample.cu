@@ -13,151 +13,127 @@
 // comes repacked by the wrapper ([tap][Cout][Cin] for bf16, [tap][Cin][Cout]
 // for f32), bias is f32.
 //
-// Design: an implicit GEMM with M = output pixels, N = Cout, K = 9·Cin.  One
-// block owns an 8 x 16 tile of output pixels of one image and BN output
-// channels.  Per chunk of input channels it gathers the tile's 17 x 33 input
-// patch into shared memory, bounds-checked against the image while loading
-// (so the padding costs no padded copy of x, and an image's bottom row never
-// reads the next image), together with the chunk's weights for all nine
-// taps; the nine taps then read windows of that patch at stride 2.  An input
-// pixel feeds 2.25 taps on average (9 in a stride-1 conv), so per FLOP this
-// kernel moves four times the activations: at 512² (B12, 128 -> 128, bf16)
-// the bound is the memory (1.0 GB against 0.23 TFLOP), at 256² C256 and
-// 128² C512 the tensor cores.  The TPU kernel's pair-column reinterpret, its
-// precomputed shifted operand and its padded row width are Mosaic layout
-// work and have no counterpart here: a strided gather into shared memory is
-// cheap on this card.  This first version loads its tiles synchronously (no
-// cp.async / TMA pipeline, no wgmma).
+// What bounds it: an input pixel feeds 2.25 taps on average (9 in a
+// stride-1 conv), so per FLOP this conv moves four times the activations:
+// at 512² (B12, 128 -> 128, bf16) the memory bounds it (1.0 GB against 0.23
+// TFLOP), at 256² C256 and 128² C512 the tensor cores.  The TPU kernel's
+// pair-column reinterpret, its precomputed shifted operand and its padded
+// row width are Mosaic layout work and have no counterpart here.
 //
-//  - down_mma_kernel (bf16): mma.sync m16n8k16 with f32 accumulation; a
-//    warp's 16-row A fragment is one tile row of 16 output pixels.  Their
-//    input columns 2c + dw lie two patch columns apart, which ldmatrix would
-//    read with bank conflicts, so a patch row keeps its even columns first
-//    and its odd columns after them: every tap then reads 16 neighbouring
-//    slots.  Patch and weight rows are padded to 48 bytes so ldmatrix reads
-//    no bank twice.  8 warps as 4 (M) x 2 (N), BN = 128.
-//  - down_f32_kernel (f32): FMAs; a thread owns 8 pixels x 4 channels.
+//  - down_wgmma_kernel (bf16): the implicit-GEMM core of `conv_common.cuh`
+//    (TMA-fed weights, a cp.async-filled patch, two wgmma consumer
+//    warpgroups) over a 16 x 16 tile of output pixels, whose 33 x 33 input
+//    patch is copied with BK = 16 input channels a chunk, in a ring of
+//    three stages; the copies arrive on the stage's barrier as they land.
+//    The grid is persistent (one CTA per SM walks tiles and N blocks).
+//    Copies are bounds-checked by coordinate (zero fill), so the padding
+//    costs no padded copy of x and an image's bottom row never reads the
+//    next image.  A patch row keeps its even columns first and its odd
+//    columns after them: output columns c .. c + 7 then read 8 neighbouring
+//    slots at every tap, so each tap's window is one wgmma descriptor.
+//    BN = 128; a tile's N blocks are neighbouring work items, so they run
+//    side by side and find the tile's patch in L2.
+//  - down_f32_kernel (f32): FMAs on an 8 x 16 tile; a thread owns 8 pixels
+//    x 4 channels.
 //
 // No atomics and no reduction across blocks: the output is the same bit for
 // bit on every run.
 
-#include "flash_common.cuh"
+#include "conv_common.cuh"
 
 namespace {
 
-using flash::ldmatrix_x4;
-using flash::mma_bf16;
-
-constexpr int TH = 8, TW = 16;                    // output tile: 8 rows x 16 columns
+constexpr int TH = 8, TW = 16;                    // f32 output tile: 8 rows x 16 columns
 constexpr int PH = 2 * TH + 1, PW = 2 * TW + 1;   // its input patch
 constexpr int NPOS = PH * PW;
-constexpr int NEVEN = TW + 1;                     // even patch columns 0, 2, .., 32
-constexpr int BK = 16;                            // input channels per chunk (bf16)
-constexpr int PSTR = BK + 8;                      // padded patch / weight row, elements
 constexpr int NTHREADS = 256;
 
-// The slot of patch column pc in its row: even columns first, then odd.
-__device__ __forceinline__ int col_slot(int pc) { return (pc & 1) * NEVEN + (pc >> 1); }
+// bf16: the 16 x 16 output tile's 33 x 33 input patch; slot s of a patch
+// row holds column 2s (s < 17) or 2(s - 17) + 1
+constexpr int QW = 2 * conv::kTile + 1, QEVEN = conv::kTile + 1;
+using WCfg = conv::Cfg<16, 128, QW * QW, 3, 0>;
 
-template <int WM, int WN, int MT, int NT>
-__global__ void __launch_bounds__(NTHREADS, 2)
-down_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
-                const float* __restrict__ bias, __nv_bfloat16* __restrict__ y, int H, int W,
-                int Cin, int Cout, int tiles_w, int tiles_per_img) {
-  static_assert(WM * WN * 32 == NTHREADS && WM * MT == TH && NT % 2 == 0, "tile shape");
-  constexpr int BN = WN * NT * 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* patch = reinterpret_cast<__nv_bfloat16*>(smem_raw);   // [NPOS][PSTR]
-  __nv_bfloat16* wt = patch + NPOS * PSTR;                             // [9][BN][PSTR]
+struct PatchFill {
+  const __nv_bfloat16* x;
+  int H, W, Cin, b, h0, w0;  // h0, w0: the tile's first output pixel
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wm = warp % WM, wn = warp / WM, g = lane / 4, t = lane % 4;
-  const int b = blockIdx.x / tiles_per_img, tile = blockIdx.x % tiles_per_img;
-  const int h0 = (tile / tiles_w) * TH, w0 = (tile % tiles_w) * TW;   // output pixels
-  const int n0 = blockIdx.y * BN;
-  const int H2 = H / 2, W2 = W / 2;
+  __device__ __forceinline__ const void* src(int pos, int c) const {
+    const int row = pos / QW, slot = pos % QW;
+    const int col = slot < QEVEN ? 2 * slot : 2 * (slot - QEVEN) + 1;
+    const int hh = 2 * h0 + row, ww = 2 * w0 + col;
+    if (hh >= H || ww >= W || c >= Cin) return nullptr;
+    return x + (((size_t)b * H + hh) * W + ww) * Cin + c;
+  }
+};
 
-  float acc[MT][NT][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+// Persistent: CTA i walks work items i, i + gridDim.x, ... (image, 16 x 16
+// output tile, N block; N blocks fastest).
+__global__ void __launch_bounds__(conv::kThreads, 1)
+down_wgmma_kernel(const __grid_constant__ CUtensorMap tw, const __nv_bfloat16* __restrict__ x,
+                  const float* __restrict__ bias, __nv_bfloat16* __restrict__ y, int H, int W,
+                  int Cin, int Cout, int tiles_w, int tiles_per_img, int n_blocks, int n_items) {
+  using namespace hopper;
+  using C = WCfg;
+  constexpr int BN = C::BN;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = conv::smem_base(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + C::BAR_OFF);
+  uint64_t* empty = full + C::STAGES;
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int nchunks = (Cin + C::BK - 1) / C::BK;
+  if (tid == 0) {
+    conv::init_ring<C>(full, empty);
+    fence_barrier_init();
+  }
+  __syncthreads();
 
-  for (int k0 = 0; k0 < Cin; k0 += BK) {
-    __syncthreads();  // the previous chunk's products are done with smem
-    // input patch: rows 2·h0 .. 2·h0 + 16, columns 2·w0 .. 2·w0 + 32; zero
-    // below the image's last row and right of its last column
-    for (int i = tid; i < NPOS * (BK / 8); i += NTHREADS) {
-      const int pos = i / (BK / 8), kv = i % (BK / 8);
-      const int pr = pos / PW, pc = pos % PW;
-      const int hh = 2 * h0 + pr, ww = 2 * w0 + pc, c = k0 + kv * 8;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (hh < H && ww < W && c < Cin)
-        v = *reinterpret_cast<const uint4*>(x + (((size_t)b * H + hh) * W + ww) * Cin + c);
-      *reinterpret_cast<uint4*>(patch + (pr * PW + col_slot(pc)) * PSTR + kv * 8) = v;
-    }
-    // the chunk's weights for all nine taps
-    for (int i = tid; i < 9 * BN * (BK / 8); i += NTHREADS) {
-      const int tap = i / (BN * (BK / 8)), rem = i % (BN * (BK / 8));
-      const int n = rem / (BK / 8), kv = rem % (BK / 8), c = k0 + kv * 8;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (n0 + n < Cout && c < Cin)
-        v = *reinterpret_cast<const uint4*>(w + ((size_t)tap * Cout + n0 + n) * Cin + c);
-      *reinterpret_cast<uint4*>(wt + (tap * BN + n) * PSTR + kv * 8) = v;
-    }
-    __syncthreads();
-
-#pragma unroll 1
-    for (int tap = 0; tap < 9; ++tap) {
-      const int dh = tap / 3, dw = tap % 3;
-      const int slot0 = col_slot(dw);  // output column c reads slot0 + c
-#pragma unroll
-      for (int ks = 0; ks < BK / 16; ++ks) {
-        uint32_t af[MT][4];
-#pragma unroll
-        for (int i = 0; i < MT; ++i) {
-          const int r = wm * MT + i;                                // tile row
-          const int col = (lane & 7) + ((lane >> 3) & 1) * 8;       // tile column
-          const int pos = (2 * r + dh) * PW + slot0 + col;
-          ldmatrix_x4(af[i], patch + pos * PSTR + ks * 16 + (lane >> 4) * 8);
-        }
-#pragma unroll
-        for (int jp = 0; jp < NT / 2; ++jp) {
-          const int n = wn * NT * 8 + jp * 16 + (lane & 7) + (lane >> 4) * 8;
-          uint32_t bfr[4];
-          ldmatrix_x4(bfr, wt + (tap * BN + n) * PSTR + ks * 16 + ((lane >> 3) & 1) * 8);
-#pragma unroll
-          for (int i = 0; i < MT; ++i) {
-            mma_bf16(acc[i][2 * jp], af[i], bfr[0], bfr[1]);
-            mma_bf16(acc[i][2 * jp + 1], af[i], bfr[2], bfr[3]);
-          }
-        }
-      }
-    }
+  if (tid >= 256) {  // producer warpgroup
+    setmaxnreg_dec<96>();
+    conv::produce<C>(
+        &tw, base, full, empty, nchunks, tid - 256, n_items, n_blocks, tiles_w, tiles_per_img,
+        [&](const conv::Item& it) { return PatchFill{x, H, W, Cin, it.b, it.h0, it.w0}; },
+        [](const conv::Item&, uint32_t) {});
+    return;
   }
 
-  // epilogue: + bias (f32), one rounding, store
+  // consumer warpgroup c: output rows 8c .. 8c + 7 (patch rows 16c + 2i +
+  // dh), blocks of columns 0-7, 8-15; tap dw reads slots from dw's
+  // column: 0 -> even slot c, 1 -> odd slot c, 2 -> even slot c + 1
+  setmaxnreg_inc<200>();
+  const int c = tid / 128, wq = (tid % 128) / 32, g = lane / 4, t = lane % 4;
+  const int H2 = H / 2, W2 = W / 2;
   const bool pair = (Cout % 2) == 0;
+  uint32_t q = 0;
+  for (int i = blockIdx.x; i < n_items; i += gridDim.x) {
+    const conv::Item it = conv::item_of(i, n_blocks, tiles_w, tiles_per_img, BN);
+    float acc[2][BN / 2];
+    conv::consume_item<C>(acc, base, full, empty, nchunks, 2 * QW * 16, lane, tid,
+                          [c](int tap, int mb) {
+                            const int dw = tap % 3;
+                            const int slot0 = dw == 0 ? 0 : dw == 1 ? QEVEN : 1;
+                            return (uint32_t)(((16 * c + tap / 3) * QW + slot0 + 8 * mb) * 16);
+                          }, conv::NoPrep{}, q);
+
+    // epilogue: + bias (f32), one rounding, store.  Accumulator row 16wq + g
+    // (+8) of block mb is output pixel (8c + 2wq (+1), 8mb + g) of the tile.
 #pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    const int n = n0 + wn * NT * 8 + j * 8 + 2 * t;
+    for (int j = 0; j < BN / 8; ++j) {
+      const int n = it.n0 + 8 * j + 2 * t;
 #pragma unroll
-    for (int i = 0; i < MT; ++i) {
-      const int ho = h0 + wm * MT + i;
+      for (int mb = 0; mb < 2; ++mb) {
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int wo = w0 + g + half * 8;
-        if (ho >= H2 || wo >= W2) continue;
-        const size_t p = (((size_t)b * H2 + ho) * W2 + wo) * Cout;
-        const float v0 = acc[i][j][half * 2], v1 = acc[i][j][half * 2 + 1];
-        if (pair && n + 1 < Cout) {
-          *reinterpret_cast<__nv_bfloat162*>(y + p + n) =
-              __floats2bfloat162_rn(v0 + bias[n], v1 + bias[n + 1]);
-        } else {
-          if (n < Cout) y[p + n] = __float2bfloat16_rn(v0 + bias[n]);
-          if (n + 1 < Cout) y[p + n + 1] = __float2bfloat16_rn(v1 + bias[n + 1]);
+        for (int h2 = 0; h2 < 2; ++h2) {
+          const int ho = it.h0 + 8 * c + 2 * wq + h2, wo = it.w0 + 8 * mb + g;
+          if (ho >= H2 || wo >= W2) continue;
+          const size_t p = (((size_t)it.b * H2 + ho) * W2 + wo) * Cout;
+          const float v0 = acc[mb][4 * j + 2 * h2], v1 = acc[mb][4 * j + 2 * h2 + 1];
+          if (pair && n + 1 < Cout) {
+            *reinterpret_cast<__nv_bfloat162*>(y + p + n) =
+                __floats2bfloat162_rn(v0 + bias[n], v1 + bias[n + 1]);
+          } else {
+            if (n < Cout) y[p + n] = __float2bfloat16_rn(v0 + bias[n]);
+            if (n + 1 < Cout) y[p + n + 1] = __float2bfloat16_rn(v1 + bias[n + 1]);
+          }
         }
       }
     }
@@ -237,19 +213,23 @@ down_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-template <int WM, int WN, int MT, int NT>
-cudaError_t launch_mma(const void* x, const void* w, const float* bias, void* y, int B, int H,
-                       int W, int Cin, int Cout, int tiles_w, int tiles_per_img,
-                       cudaStream_t stream) {
-  constexpr int BN = WN * NT * 8;
-  const size_t smem = (size_t)(NPOS + 9 * BN) * PSTR * sizeof(__nv_bfloat16);
-  cudaError_t err = cudaFuncSetAttribute(down_mma_kernel<WM, WN, MT, NT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+cudaError_t launch_wgmma(const void* x, const void* w, const float* bias, void* y, int B,
+                         int H, int W, int Cin, int Cout, cudaStream_t stream) {
+  using C = WCfg;
+  const int tiles_w = (W / 2 + conv::kTile - 1) / conv::kTile;
+  const int tiles_per_img = ((H / 2 + conv::kTile - 1) / conv::kTile) * tiles_w;
+  const int n_blocks = (Cout + C::BN - 1) / C::BN;
+  const long long n_items = (long long)B * tiles_per_img * n_blocks;
+  if (n_items > 2147483647LL) return cudaErrorInvalidValue;
+  CUtensorMap tw;
+  if (!conv::encode_weight_map(&tw, w, Cin, Cout, C::BK, C::BN, conv::swizzle_of<C::SPAN>()))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(down_wgmma_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return err;
-  const dim3 grid(B * tiles_per_img, (Cout + BN - 1) / BN);
-  down_mma_kernel<WM, WN, MT, NT><<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w), bias,
-      static_cast<__nv_bfloat16*>(y), H, W, Cin, Cout, tiles_w, tiles_per_img);
+  down_wgmma_kernel<<<conv::persistent_grid(n_items, 1), conv::kThreads, C::SMEM, stream>>>(
+      tw, static_cast<const __nv_bfloat16*>(x), bias, static_cast<__nv_bfloat16*>(y), H, W, Cin,
+      Cout, tiles_w, tiles_per_img, n_blocks, (int)n_items);
   return cudaGetLastError();
 }
 
@@ -289,8 +269,20 @@ extern "C" int downsample_conv2x(const void* x, const void* w, const void* bias,
   }
   if (dtype == 1) {
     if (Cin % 8) return (int)cudaErrorInvalidValue;
-    return (int)launch_mma<4, 2, 2, 8>(x, w, bp, y, B, H, W, Cin, Cout, tiles_w, tiles_per_img,
-                                       s);
+    return (int)launch_wgmma(x, w, bp, y, B, H, W, Cin, Cout, s);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// The bf16 kernel's registers a thread at launch, dynamic shared memory and
+// threads per CTA (which: 0, the only variant).
+extern "C" int downsample_info(int which, int* regs, int* smem, int* threads) {
+  if (which != 0) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, down_wgmma_kernel);
+  if (err != cudaSuccess) return (int)err;
+  *regs = attr.numRegs;
+  *smem = WCfg::SMEM;
+  *threads = conv::kThreads;
+  return 0;
 }

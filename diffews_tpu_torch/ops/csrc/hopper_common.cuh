@@ -2,13 +2,15 @@
 //
 //  - mbarrier ops (init, arrive, arrive with an expected transaction
 //    count, parity wait) for producer/consumer rings in shared memory;
-//  - TMA: 4-D tiled loads and plain bulk copies into shared memory that
-//    complete on an mbarrier, and the host-side tensor map of a contiguous
-//    (B, S, H, D) tensor;
+//  - TMA: 3-D and 4-D tiled loads and plain bulk copies into shared memory
+//    that complete on an mbarrier, and host-side tensor maps (any bf16
+//    tiled map; that of a contiguous (B, S, H, D) tensor);
+//  - cp.async 16-byte copies with zero-fill, and their mbarrier arrival;
 //  - the producer warp of a key/value ring (flash forward, flash dq): it
 //    votes over each tile's key-mask bytes, skips tiles with no valid key
 //    and hands the key bits over beside the tile;
-//  - wgmma: shared-memory matrix descriptors, fence / commit / wait, and
+//  - wgmma: shared-memory matrix descriptors (swizzled, and the no-swizzle
+//    core-matrix layout), fence / commit / wait, and
 //    the bf16 m64nNk16 products the kernels use (f32 accumulate), with A
 //    from shared memory ("ss") or from registers ("rs");
 //  - setmaxnreg, named barriers, the async-proxy fence, ex2.
@@ -105,20 +107,46 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       : "memory");
 }
 
-// Host: the tensor map of a contiguous bf16 (B, S, H, D) tensor seen as the
-// 4-D tensor (D, H, S, B), innermost first, boxes of (box_d, 1, box_rows,
-// 1).  Nothing is copied or transposed; a box row past S is zero-filled
-// (out of bounds in its own batch row).  The row strides (D*2, H*D*2,
-// S*H*D*2 bytes) are multiples of 16 as TMA requires when D % 8 == 0.
-// box_d * 2 bytes must equal the swizzle span.  Returns false on failure.
-inline bool encode_bshd_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int D,
-                            int box_d, int box_rows, CUtensorMapSwizzle swizzle) {
+// 3-D analogue of `tma_load_4d`: the box at (c0, c1, c2), innermost first.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// --- cp.async (16-byte copies global -> shared, per thread) -------------------
+
+// Copy 16 bytes from `src` to `dst` (both 16-byte aligned); with
+// src_bytes = 0 nothing is read and `dst` is zero-filled.
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// Arrive on `bar` once this thread's earlier cp.async copies have landed;
+// the arrival is one of the barrier's expected count (.noinc).
+__device__ __forceinline__ void cp_async_arrive_noinc(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+// Host: a tiled bf16 tensor map of `rank` dims (innermost first; `strides`:
+// the rank - 1 outer strides in bytes, multiples of 16) with boxes of `box`.
+// Boxes reaching past a dim are zero-filled.  cuTensorMapEncodeTiled is
+// resolved at run time, so nothing links -lcuda.  Returns false on failure.
+inline bool encode_tiled(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
+                         const cuuint64_t* strides, const cuuint32_t* box,
+                         CUtensorMapSwizzle swizzle) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                               const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                               const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                               CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
   static Encode encode = nullptr;
-  if (encode == nullptr) {  // looked up at run time, so nothing links -lcuda
+  if (encode == nullptr) {
     void* fn = nullptr;
     cudaDriverEntryPointQueryResult status;
 #if CUDART_VERSION >= 12050
@@ -133,15 +161,26 @@ inline bool encode_bshd_map(CUtensorMap* map, const void* ptr, int B, int S, int
     if (status != cudaDriverEntryPointSuccess || fn == nullptr) return false;
     encode = reinterpret_cast<Encode>(fn);
   }
+  const cuuint32_t elem_strides[5] = {1, 1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims,
+                strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Host: the tensor map of a contiguous bf16 (B, S, H, D) tensor seen as the
+// 4-D tensor (D, H, S, B), innermost first, boxes of (box_d, 1, box_rows,
+// 1).  Nothing is copied or transposed; a box row past S is zero-filled
+// (out of bounds in its own batch row).  The row strides (D*2, H*D*2,
+// S*H*D*2 bytes) are multiples of 16 as TMA requires when D % 8 == 0.
+// box_d * 2 bytes must equal the swizzle span.  Returns false on failure.
+inline bool encode_bshd_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int D,
+                            int box_d, int box_rows, CUtensorMapSwizzle swizzle) {
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
                                  (cuuint64_t)S * H * D * 2};
   const cuuint32_t box[4] = {(cuuint32_t)box_d, 1, (cuuint32_t)box_rows, 1};
-  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
-                box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return encode_tiled(map, ptr, 4, dims, strides, box, swizzle);
 }
 
 // --- wgmma -------------------------------------------------------------------
@@ -172,6 +211,16 @@ template <int SPAN>
 __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo = 16) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
          ((uint64_t)((8 * SPAN) >> 4) << 32) | (Swizzle<SPAN>::code << 62);
+}
+
+// Descriptor of a K-major tile in the no-swizzle layout at `addr` (16-byte
+// aligned): core matrices of 8 rows x 16 bytes, each 128 contiguous bytes;
+// `lbo` bytes between core matrices along K, `sbo` bytes between 8-row
+// groups.  Any 16-byte-aligned start is a valid tile, so a window that
+// starts at any row of a larger array of core matrices is one descriptor.
+__device__ __forceinline__ uint64_t make_desc_plain(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -262,6 +311,16 @@ __device__ __forceinline__ void wgmma_ss<32, 0>(float (&d)[16], uint64_t da, uin
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<8, 0>(float (&d)[4], uint64_t da, uint64_t db,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {%0, %1, %2, %3}, %4, %5, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 

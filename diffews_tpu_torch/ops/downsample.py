@@ -3,10 +3,12 @@ hand-written CUDA kernel and its plain version.
 
 Port of `diffews_tpu/ops/downsample.py` (`downsample_conv2x` with its
 custom VJP).  Its Pallas kernel `_kernel` becomes the CUDA kernel in
-`ops/csrc/downsample.cu`: an implicit GEMM over an 8 x 16 tile of output
-pixels whose 17 x 33 input patch is gathered into shared memory with the
-bottom row and the right column bounds-checked, so the asymmetric
-(0,1),(0,1) zero padding costs no padded copy of x.
+`ops/csrc/downsample.cu`: in bf16 an implicit GEMM on the shared Hopper
+core of `ops/csrc/conv_common.cuh` (TMA-fed weights, wgmma), over 16 x 16
+tiles of output pixels whose 33 x 33 input patch is copied into shared
+memory with the bottom row and the right column bounds-checked, so the
+asymmetric (0,1),(0,1) zero padding costs no padded copy of x; in f32 an
+FMA kernel over 8 x 16 tiles.
 
 As in the JAX package, no model calls this op (the VAE's `Downsample2D`
 goes through the plain convolution); it is an op of its own, held against

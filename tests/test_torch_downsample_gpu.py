@@ -1,11 +1,14 @@
 """The CUDA 3x3 stride-2 downsample kernel against its plain version, on
 the card.
 
-Small, ragged (output H and W not multiples of the 8 x 16 tile, an odd
-number of tiles, Cin not a multiple of the 16-channel chunk) and full
-widths, Cout = 8, 128 and 512 and an odd Cout, B = 1 and 3, f32 (TF32 off)
-and bf16; bit-identical repeats; each image alone equals its row of the
-batch (an image's bottom padding row is never the next image's first row);
+Small, ragged (output H and W not multiples of the 16 x 16 bf16 tile or
+the 8 x 16 f32 tile, in both extents, an odd number of tiles; Cin = 8,
+24, 40, 72, not multiples of the 16-channel chunk) and full widths, Cout =
+7, 8, 128, 136, 512 and 520 (not multiples of the 128-channel N block),
+B = 1, 3 and 13, f32 (TF32 off) and bf16; bit-identical repeats; each
+image alone equals its row of the batch (an image's bottom padding row is
+never the next image's first row); a call on all-NaN input leaves nothing
+behind for the next call;
 inputs the kernel does not take raise; the launch counter; gradients on
 the card through the autograd Function.  Tolerances: f32 max |kernel −
 plain| ≤ 1e-4·max|plain|; bf16 max ≤ 2e-2·max|plain| and mean ≤
@@ -56,7 +59,10 @@ SHAPES = [  # (B, H, W, Cin, Cout)
     (1, 16, 32, 16, 8), (3, 16, 32, 16, 8), (1, 2, 2, 8, 8), (3, 26, 40, 24, 128),
     (1, 48, 96, 32, 128), (3, 10, 6, 40, 136), (1, 34, 70, 8, 7), (3, 80, 160, 16, 512),
     (1, 64, 64, 128, 512), (3, 512, 512, 128, 128), (1, 512, 512, 128, 128),
-    (3, 256, 256, 256, 256), (3, 128, 128, 512, 512)]
+    (3, 256, 256, 256, 256), (3, 128, 128, 512, 512),
+    # the 16 x 16 tile's edges, chunks past Cin, partial N blocks, B = 13
+    (13, 34, 50, 24, 136), (1, 30, 66, 8, 520), (13, 18, 14, 40, 8), (1, 62, 34, 72, 7),
+    (13, 32, 32, 24, 520), (1, 66, 98, 40, 136)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -87,6 +93,17 @@ def test_each_image_alone_equals_its_batch_row(cuda, dtype):
     xo = x.clone()
     xo[1:] = -xo[1:].flip(2)
     assert torch.equal(DS.downsample_conv2x(xo, w, bias)[0], y[0])
+
+
+@pytest.mark.parametrize("cin", [24, 40])
+def test_nan_call_leaves_nothing_for_the_next(cuda, cin):
+    """A call on all-NaN x, then a call on finite x at a Cin that is not a
+    multiple of the channel chunk: the second result is finite and matches
+    the plain version (stale shared memory past Cin meets no weight)."""
+    x, w, bias = _inputs(2, 40, 72, cin, 136, torch.bfloat16, 20 + cin, cuda)
+    DS.downsample_conv2x(torch.full_like(x, float("nan")), w, bias)
+    _close(DS.downsample_conv2x(x, w, bias), DS.downsample_conv2x_reference(x, w, bias),
+           torch.bfloat16)
 
 
 def test_padding_is_zeros(cuda):

@@ -1,12 +1,15 @@
 """The CUDA fused GroupNorm-apply + SiLU + 3x3 conv kernel against its
 plain version, on the card.
 
-Small, ragged (H and W not multiples of the 8 x 16 tile, Cin not a
-multiple of the 32-channel chunk) and full widths, Cout = 3 and 8 (the
-VAE heads), with and without residual, f32 (TF32 off) and bf16; the
+Small, ragged (H and W not multiples of the 16 x 16 bf16 tile or the 8 x
+16 f32 tile, in both extents; Cin = 8, 24, 72 and others not multiples of
+the 32-channel chunk; Cout = 136 and 520, not multiples of the 128-channel
+N block; B = 1 and 13) and full widths, Cout = 3 and 8 (the VAE heads),
+with and without residual, f32 (TF32 off) and bf16; the
 statistics against a fresh sum of the kernel's own output; bit-identical
-repeats; a row's output independent of the other rows' content; inputs the
-kernel does not take raise.  Tolerances: f32 max |kernel − plain| ≤
+repeats; a row's output independent of the other rows' content; a call on
+all-NaN input leaves nothing behind for the next call (channels past Cin
+are zero in both operands); inputs the kernel does not take raise.  Tolerances: f32 max |kernel − plain| ≤
 1e-4·max|plain|; bf16 max ≤ 2e-2·max|plain| and mean ≤ 2e-3·max|plain|
 (the kernel rounds the activation to bf16 before the product, the plain
 version convolves it in f32); statistics 1e-5 of Σ|y| and Σy².
@@ -68,7 +71,11 @@ SHAPES = [  # (B, H, W, Cin, Cout, residual)
     (2, 32, 32, 16, 16, True), (2, 16, 16, 32, 3, False), (2, 16, 16, 32, 8, False),
     (1, 5, 3, 64, 136, True), (1, 1, 1, 32, 32, False),
     (2, 512, 512, 128, 128, True), (4, 256, 256, 256, 256, True), (4, 64, 64, 512, 512, True),
-    (2, 512, 512, 128, 3, False), (4, 64, 64, 512, 8, False), (2, 256, 256, 128, 256, False)]
+    (2, 512, 512, 128, 3, False), (4, 64, 64, 512, 8, False), (2, 256, 256, 128, 256, False),
+    # the 16 x 16 tile's edges, chunks past Cin, partial N blocks, B = 13
+    (13, 17, 35, 24, 136, True), (1, 31, 18, 8, 3, False), (2, 33, 47, 72, 520, True),
+    (13, 20, 9, 72, 8, False), (1, 40, 24, 24, 8, True), (13, 16, 16, 8, 136, False),
+    (1, 47, 33, 24, 520, False)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -96,6 +103,18 @@ def test_repeat_is_bit_identical_and_rows_are_independent(cuda, dtype):
     xo[1:], ro[1:] = -xo[1:].flip(2), ro[1:] * 2.0
     y3 = FR.gn_silu_conv3x3(xo, a, b, w, bias, ro)
     assert all(torch.equal(p[0], q[0]) for p, q in zip(y1, y3))
+
+
+@pytest.mark.parametrize("cin", [24, 72])
+def test_nan_call_leaves_nothing_for_the_next(cuda, cin):
+    """A call on all-NaN x, then a call on finite x at a Cin that is not a
+    multiple of the channel chunk: the second result is finite and matches
+    the plain version (stale shared memory past Cin meets no weight)."""
+    x, a, b, w, bias, rr = _inputs(2, 24, 40, cin, 136, True, torch.bfloat16, 14 + cin, cuda)
+    FR.gn_silu_conv3x3(torch.full_like(x, float("nan")), a, b, w, bias, rr)
+    y, s1, s2 = FR.gn_silu_conv3x3(x, a, b, w, bias, rr)
+    _close(y, FR.gn_silu_conv3x3_reference(x, a, b, w, bias, rr)[0], torch.bfloat16)
+    _stats_of(y, s1, s2)
 
 
 def test_image_boundaries_are_padding(cuda):
