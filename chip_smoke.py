@@ -63,7 +63,23 @@ Phases, each of which fails the run (non-zero exit) on any error:
      5-shot episode with two padded shots against the 3-shot episode,
      under "xla" and "fused"; the f32 (TF32 off) fused-vs-xla VAE encode
      and decode;
- 11. cached: cached-support serving at the same widths, bf16, 512px, under
+ 11. eval: the eval harness (`diffews_tpu_torch.cli.evaluate`) on a
+     synthetic COCO tree (`tests/helpers/synthetic_data.make_coco`): the CLI
+     from a tiny checkpoint written from the port's seeded modules
+     (`tests/helpers/port_checkpoint.py`) on the card and on the CPU, f32
+     with TF32 off, 8 episodes at 32px under `vae_impl` "xla" and "auto"
+     (equal mIoU and FB-IoU, every episode within the episode contract);
+     then `evaluate(args, pipe=...)` with the full-width bf16 pipeline at
+     512px, 1-shot, 16 batches at bsz 4 and at bsz 1: every batch's
+     launches (34 flash, 94 + 94 GroupNorm under "xla") and its prediction
+     bit for bit equal to a bare `predict` on the same batch; dispatch-ahead
+     2 and 1 (and 2 with two loader workers) give identical metrics;
+     the query upload returns while a spin kernel holds the device (it
+     does not wait for the device); episodes/s of each, the bare `predict` loop's
+     wall on the same batches, the loader's seconds per batch,
+     `predict_async`'s host time, and one profiled run's device busy and
+     idle share;
+ 12. cached: cached-support serving at the same widths, bf16, 512px, under
      `vae_impl` "xla" and "auto": `precompute_supports` for a 1-shot and a
      5-shot (two padded) support set (33 flash launches each) and
      `predict_cached` at batch 4 and 1 (18 flash launches), each with exact
@@ -71,7 +87,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
      bf16 a repeat is bit-identical, padded shots' content changes no bit
      and a batch-1 cache equals its four copies; in f32 (TF32 off) cached
      equals the joint episode within one uint8 count;
- 12. train: the training step at the same widths (bf16 compute, f32
+ 13. train: the training step at the same widths (bf16 compute, f32
      masters, remat, AdamW): launches per micro-step (65 flash forward, 32
      dq, 32 dkv, 109 + 109 GroupNorm), step times at gas 1 and 4, peak
      memory, a profile (and the micro-step's forward and backward flash
@@ -1500,6 +1516,230 @@ def phase_cached(card):
     return paths
 
 
+EVAL_BATCHES = 16  # batches of each full-width harness run
+
+
+def _eval_argv(data, logs, *extra):
+    return ["--checkpoint", "unused", "--datapath", data, "--benchmark", "coco",
+            "--fold", "0", "--nshot", "1", "--threshold", "0", "--r_threshold", "0.25",
+            "--log-root", logs, *extra]
+
+
+class _KeepSeg:
+    """The pipeline as the harness sees it, keeping every batch: its inputs,
+    the kernel launches of its `predict_async`, the host time that call took
+    and the `SegOutput` the harness drained (seg included)."""
+
+    def __init__(self, pipe):
+        self.pipe, self.calls = pipe, []
+
+    def predict_async(self, *args, **kw):
+        before = _launch_counts()
+        t0 = time.time()
+        pending = self.pipe.predict_async(*args, **kw)
+        rec = {"args": args, "kw": kw, "host_s": time.time() - t0,
+               "launches": {k: v - before[k] for k, v in _launch_counts().items()}}
+        self.calls.append(rec)
+        result = pending.result
+
+        def keep(need_seg=True):
+            rec["out"] = result(need_seg=True)
+            return rec["out"]
+
+        pending.result = keep
+        return pending
+
+
+def _eval_tiny(tmp, data):
+    """The CLI from a tiny port-written checkpoint on the card and on the
+    CPU, f32 with TF32 off, 8 episodes at 32px, under "xla" and "auto":
+    equal metrics, every episode within the episode contract."""
+    import torch
+    from diffews_tpu_torch import pipeline as TP
+    from diffews_tpu_torch.cli import evaluate as TE
+    from diffews_tpu_torch.configs import (CLIPTextConfig, SchedulerConfig,
+                                           UNetConfig, VAEConfig)
+    from helpers.port_checkpoint import write_checkpoint
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ckpt = write_checkpoint(os.path.join(tmp, "tiny_ckpt"), UNetConfig.tiny(), VAEConfig.tiny(),
+                            CLIPTextConfig.tiny(), SchedulerConfig.diffews(), seed=0)
+    out = {}
+    orig = TP.PendingSeg.result
+    for vae_impl in ("xla", "auto"):
+        res = {}
+        for dev in ("cpu", "cuda"):
+            segs = []
+
+            def keep(self, need_seg=True):
+                segs.append(orig(self, need_seg))
+                return segs[-1]
+
+            argv = _eval_argv(data, os.path.join(tmp, "logs_tiny"), "--img-size", "32",
+                              "--max_episodes", "8", "--vae_impl", vae_impl)
+            argv[argv.index("--checkpoint") + 1] = ckpt
+            TP.PendingSeg.result = keep
+            try:
+                _zero_counts()
+                metrics = TE.main(argv + ["--device", dev])
+                counts = _launch_counts()
+            finally:
+                TP.PendingSeg.result = orig
+            res[dev] = (metrics, segs, counts)
+        what = f"eval tiny GPU vs CPU ({vae_impl})"
+        (m_cpu, s_cpu, _), (m_gpu, s_gpu, counts) = res["cpu"], res["cuda"]
+        check(len(s_cpu) == len(s_gpu) == 8, f"{what}: {len(s_cpu)} / {len(s_gpu)} episodes")
+        check(counts["flash_attention_fwd"] > 0 and counts["gn_apply"] > 0
+              and (counts["fused_gn_silu_conv3x3"] > 0) == (vae_impl == "auto"),
+              f"{what}: kernel launches {counts}")
+        mx = frac = flips = 0
+        for i, (a, b) in enumerate(zip(s_gpu, s_cpu)):
+            m1, f1 = _uint8_close(a.seg_colored, b.seg_colored, f"{what}, episode {i}")
+            mx, frac = max(mx, m1), max(frac, f1)
+            flips = max(flips, float((a.mask != b.mask).mean()))
+        check(flips < 0.01, f"{what}: {flips:.4f} of mask pixels flip")
+        check(abs(m_gpu[0] - m_cpu[0]) <= 1e-9 and abs(m_gpu[1] - m_cpu[1]) <= 1e-9,
+              f"{what}: (mIoU, FB-IoU) {m_gpu} on the card, {m_cpu} on the CPU")
+        out[vae_impl] = {"miou_fbiou_cuda": list(m_gpu), "miou_fbiou_cpu": list(m_cpu),
+                         "max_uint8_diff": mx, "max_frac_differ": frac,
+                         "max_mask_flips": flips, "kernel_launches": counts}
+    return out
+
+
+def _upload_while_busy(pipe, x):
+    """The host time of the pipeline's upload of `x` while a spin kernel
+    queued just before it holds the device for about a second, and the time
+    to the device's end: an upload that waited for the device would turn
+    every episode's dispatch into a synchronisation point."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.time()
+    torch.cuda._sleep(10 ** 8)
+    torch.cuda.synchronize()
+    cycles = int(10 ** 8 / (time.time() - t0))  # about one second
+    torch.cuda._sleep(cycles)
+    t0 = time.time()
+    pipe._put(x)
+    host = time.time() - t0
+    torch.cuda.synchronize()
+    return host, time.time() - t0
+
+
+def _loader_s_per_batch(data, bsz):
+    """The data layer alone: seconds per batch of the seeded eval stream at
+    512px (PIL decode and resizes, no device)."""
+    from diffews_tpu_torch.data.dataset import FSSDataset
+
+    FSSDataset.initialize(512, data, raw_images=True)
+    loader = FSSDataset.build_dataloader("coco", bsz, 0, 0, "test", 1)
+    np.random.seed(0)
+    t0 = time.time()
+    n = sum(1 for _, _ in zip(range(EVAL_BATCHES), loader))
+    return (time.time() - t0) / n
+
+
+def phase_eval(card):
+    """The eval harness (`diffews_tpu_torch.cli.evaluate`) on the card."""
+    import tempfile
+
+    import torch
+    from diffews_tpu_torch.cli import evaluate as TE
+    from diffews_tpu_torch.pipeline import DiffewsPipeline
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from helpers.synthetic_data import make_coco
+
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = make_coco(os.path.join(tmp, "data"))
+        res["tiny"] = _eval_tiny(tmp, data)
+        emit({"phase": "eval_tiny", "dtype": "float32", "tf32": False, **res["tiny"]})
+
+        # full width, bf16, 512px, the default vae_impl "xla"
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        pipe = DiffewsPipeline(_full_bundle(), device="cuda", compute_dtype=torch.bfloat16)
+        logs = os.path.join(tmp, "logs")
+        expected = EPISODE_LAUNCHES["xla"]
+        for bsz in (4, 1):
+            label = f"b{bsz}"
+            args = lambda depth, *extra: TE.build_parser().parse_args(_eval_argv(
+                data, logs, "--img-size", "512", "--bsz", str(bsz), "--max_episodes",
+                str(EVAL_BATCHES), "--dispatch_ahead", str(depth), *extra))
+            # (a) one counted run through the recorder: every batch's launches
+            # are a bare predict's, and its mask is `predict`'s on that batch
+            keep = _KeepSeg(pipe)
+            _zero_counts()
+            metrics = TE.evaluate(args(2), pipe=keep)
+            torch.cuda.synchronize()
+            total = _launch_counts()
+            check(len(keep.calls) == EVAL_BATCHES, f"eval {label}: {len(keep.calls)} batches")
+            for i, rec in enumerate(keep.calls):
+                check(rec["launches"] == expected,
+                      f"eval {label} batch {i} launched {rec['launches']}, expected {expected}")
+            check(total == {k: v * EVAL_BATCHES for k, v in expected.items()},
+                  f"eval {label}: the run launched {total}")
+            bare_counts = None
+            for i, rec in enumerate(keep.calls):
+                _zero_counts()
+                ref = pipe.predict(*rec["args"], **rec["kw"])
+                bare_counts = bare_counts or _launch_counts()
+                check(np.array_equal(rec["out"].seg_colored, ref.seg_colored)
+                      and np.array_equal(rec["out"].mask, ref.mask),
+                      f"eval {label} batch {i}: the harness's prediction differs from "
+                      "`predict` on the same batch")
+            check(bare_counts == expected, f"bare predict launched {bare_counts}")
+            busy_host, busy_total = _upload_while_busy(pipe, keep.calls[0]["args"][0])
+            check(busy_host < 0.5 and busy_total > 0.8,
+                  f"eval {label}: the query upload took {busy_host:.3f} s of the host while "
+                  f"the device was held busy ({busy_total:.3f} s to its end): it waits for "
+                  "the device")
+            check(all(np.isfinite(metrics)), f"eval {label}: metrics {metrics}")
+            # (b) timed runs: dispatch-ahead 2 and 1 (and 2 with two loader
+            # workers), each to the device's end; identical metrics
+            timed = {}
+            for name, a in (("dispatch2", args(2)), ("dispatch1", args(1)),
+                            ("dispatch2_nworker2", args(2, "--nworker", "2"))):
+                torch.cuda.synchronize()
+                t0 = time.time()
+                m = TE.evaluate(a, pipe=pipe)
+                torch.cuda.synchronize()
+                wall = time.time() - t0
+                check(m == metrics, f"eval {label} {name}: metrics {m} != {metrics}")
+                timed[name] = {"wall_s": wall, "episodes_per_s": EVAL_BATCHES * bsz / wall}
+            # (c) the bare predict loop on the same batches, synchronous
+            torch.cuda.synchronize()
+            t0 = time.time()
+            for rec in keep.calls:
+                pipe.predict(*rec["args"], **rec["kw"])
+            torch.cuda.synchronize()
+            bare = time.time() - t0
+            prof = profile_episode(lambda: TE.evaluate(args(2), pipe=pipe))
+            host = sorted(r["host_s"] for r in keep.calls[1:])
+            res[label] = {
+                "miou_fbiou": list(metrics), "batches": EVAL_BATCHES,
+                "episodes": EVAL_BATCHES * bsz,
+                "launches_per_batch": expected, "launches_run": total,
+                "timed": timed, "bare_predict_wall_s": bare,
+                "bare_predict_episodes_per_s": EVAL_BATCHES * bsz / bare,
+                "harness_host_cost_s": timed["dispatch2"]["wall_s"] - bare,
+                "loader_s_per_batch": _loader_s_per_batch(data, bsz),
+                "predict_async_host_s_median": host[len(host) // 2],
+                "upload_host_s_device_busy_1s": busy_host,
+                "profile": prof, "card": card}
+            emit({"phase": f"eval_1shot_{label}_512px_bf16",
+                  **{k: v for k, v in res[label].items() if k != "profile"},
+                  "device_busy_ms": prof.get("device_busy_ms"),
+                  "device_idle_share": prof.get("device_idle_share"),
+                  "wall_ms_profiled": prof.get("wall_ms_profiled")})
+        del pipe
+        torch.cuda.empty_cache()
+    RESULTS["eval"] = res
+    return {f"eval_harness_1shot_b4_{EVAL_BATCHES}_batches": res["b4"]["launches_run"]}
+
+
 def _grads_compare(ga, gb):
     """Global-norm relative difference and the least per-leaf cosine."""
     import torch
@@ -1772,7 +2012,7 @@ def phase_train(card):
 
 
 def kernel_record(rows, bwd_rows, norm_rows, fused_rows, down_rows, episode_launches,
-                  train_launches, cached_launches, down_launches):
+                  train_launches, cached_launches, down_launches, eval_launches):
     """One entry per kernel.  `launches` is the count on the path of the
     slice that ported it (the training micro-step for the flash kernels,
     the default episode for the GroupNorm kernels, the `vae_impl="fused"`
@@ -1788,7 +2028,7 @@ def kernel_record(rows, bwd_rows, norm_rows, fused_rows, down_rows, episode_laun
              and r["dtype"] == "bfloat16"][0]
     dmain = [r for r in down_rows
              if tuple(r["shape"]) == DOWN_MAIN_SHAPE and r["dtype"] == "bfloat16"][0]
-    paths = dict(episode_launches, **cached_launches,
+    paths = dict(episode_launches, **cached_launches, **eval_launches,
                  train_micro_step_1shot_b1=train_launches,
                  downsample_conv2x_encoder_inputs_b12=down_launches)
     by_path = lambda key: {p: c[key] for p, c in paths.items()}
@@ -1892,7 +2132,8 @@ def kernel_record(rows, bwd_rows, norm_rows, fused_rows, down_rows, episode_laun
     return {"kernels": out}
 
 
-PHASES = "device,build,kernel,bwd,norm,fused,downsample,tiny,tiny_train,full,cached,train"
+PHASES = ("device,build,kernel,bwd,norm,fused,downsample,tiny,tiny_train,full,eval,cached,"
+          "train")
 
 
 def main():
@@ -1927,6 +2168,7 @@ def main():
     if "tiny_train" in phases:
         phase_tiny_train()
     episode_launches = phase_full(card) if "full" in phases else None
+    eval_launches = phase_eval(card) if "eval" in phases else None
     cached_launches = phase_cached(card) if "cached" in phases else None
     train_launches = phase_train(card) if "train" in phases else None
     RESULTS["seconds"] = time.time() - t_start
@@ -1936,7 +2178,7 @@ def main():
     if phases != set(PHASES.split(",")):
         fail(f"phases {sorted(phases)} ran; the kernel record needs all of {PHASES}")
     emit(kernel_record(rows, bwd_rows, norm_rows, fused_rows, down_rows, episode_launches,
-                       train_launches, cached_launches, down_launches))
+                       train_launches, cached_launches, down_launches, eval_launches))
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
 

@@ -11,6 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from diffews_tpu_torch.utils import to_device
+
 
 def _nearest_indices(in_size: int, out_size: int) -> np.ndarray:
     idx = np.floor(np.arange(out_size, dtype=np.float64) * (in_size / out_size))
@@ -25,7 +27,7 @@ def nearest_resize(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
         x = x[..., None]
     h, w = x.shape[1], x.shape[2]
     if (h, w) != (h_out, w_out):
-        ih = torch.from_numpy(_nearest_indices(h, h_out)).to(x.device)
-        iw = torch.from_numpy(_nearest_indices(w, w_out)).to(x.device)
+        ih = to_device(torch.from_numpy(_nearest_indices(h, h_out)), x.device)
+        iw = to_device(torch.from_numpy(_nearest_indices(w, w_out)), x.device)
         x = x.index_select(1, ih).index_select(2, iw)
     return x[..., 0] if squeeze else x

@@ -23,8 +23,10 @@ and steps 4-6 for any number of queries.
 
 PyTorch runs eagerly and CUDA launches are asynchronous, so `predict_async`
 and `predict_cached_async` return as soon as the work is queued;
-`PendingSeg.result()` is the synchronisation point.  The pipeline runs on `cuda` unless `device="cpu"`
-is passed; it never moves to the CPU by itself.
+`PendingSeg.result()` is the synchronisation point (uploads go through
+pinned memory, so they do not wait for the device).  The pipeline runs on
+`cuda` unless `device="cpu"` is passed; it never moves to the CPU by
+itself.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from diffews_tpu_torch.configs import UNetConfig, VAEConfig
 from diffews_tpu_torch.models import clip_text
 from diffews_tpu_torch.ops.resize import nearest_resize
 from diffews_tpu_torch.scheduler import DDIMScheduler
+from diffews_tpu_torch.utils import to_device
 
 VAE_IMPLS = ("xla", "fused", "mixed", "auto")
 
@@ -285,7 +288,7 @@ class DiffewsPipeline:
         return img.clamp(0.0, 255.0).to(torch.uint8)
 
     def _put(self, x) -> torch.Tensor:
-        return torch.as_tensor(x).to(self.device, non_blocking=True)
+        return to_device(torch.as_tensor(x), self.device)
 
     # -- public API ---------------------------------------------------------
 

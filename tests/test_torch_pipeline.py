@@ -184,3 +184,53 @@ def test_unknown_vae_impl_raises():
                                   TCF.SchedulerConfig.diffews())
     with pytest.raises(ValueError, match="vae_impl"):
         TP.DiffewsPipeline(b, device="cpu", vae_impl="cudnn")
+
+
+def _option_pipes(bundles, *, text=False, scheduler=None, **kw):
+    """A JAX and a port pipeline on the same tiny weights with the same
+    options: optionally a tiny CLIP text encoder (JAX-initialised) and
+    another scheduler config."""
+    from diffews_tpu.models import clip_text as JCT
+    from diffews_tpu_torch.models import clip_text as TCT
+
+    jb, port = bundles
+    tb = port()
+    if text:
+        tcfg = CLIPTextConfig.tiny()
+        tparams = jax.device_get(jax.jit(lambda r: JCT.init_params(r, tcfg))(
+            jax.random.PRNGKey(2)))
+        jb = JC.PipelineBundle(jb.unet_params, jb.unet_cfg, jb.vae_params, jb.vae_cfg,
+                               tparams, tcfg, jb.scheduler_cfg)
+        tb.text, tb.text_cfg = TCT.CLIPTextModel(TCF.CLIPTextConfig.tiny()), \
+            TCF.CLIPTextConfig.tiny()
+        tb.text.load_state_dict(TC.state_dict_from_jax(tparams), strict=True)
+    if scheduler is not None:
+        jb = JC.PipelineBundle(jb.unet_params, jb.unet_cfg, jb.vae_params, jb.vae_cfg,
+                               jb.text_params, jb.text_cfg, SchedulerConfig(**scheduler))
+        tb.scheduler_cfg = TCF.SchedulerConfig(**scheduler)
+    return JP.DiffewsPipeline(jb, **kw), TP.DiffewsPipeline(tb, device="cpu", **kw)
+
+
+# The pipeline options the eval harness passes straight through
+# (`--encode_chunks`, `--test_timestep`, `--denoise_steps`) and a bundle with
+# a text encoder (the harness's checkpoints carry one).
+@pytest.mark.parametrize("case", [
+    {"kw": {"encode_chunks": 3}, "n": 2},  # 2 + 2·2 + 2·2 = 10 images, 3 chunks
+    {"kw": {"test_timestep": 500}, "n": 1},
+    {"kw": {}, "n": 1, "steps": 3,
+     "scheduler": {"prediction_type": "v_prediction", "clip_sample": False}},
+    {"kw": {}, "n": 2, "text": True},
+], ids=["encode_chunks3", "test_timestep500", "v_prediction_3_steps", "text_encoder"])
+def test_pipeline_options_match_jax(bundles, case):
+    jp, tp = _option_pipes(bundles, text=case.get("text", False),
+                           scheduler=case.get("scheduler"), **case["kw"])
+    if case.get("text"):
+        assert float(np.abs(tp.empty_text_embed.numpy()).max()) > 0
+        np.testing.assert_allclose(tp.empty_text_embed.numpy(),
+                                   np.asarray(jp.empty_text_embed), rtol=1e-5, atol=1e-5)
+    q, sup, m = _episode(2, case["n"], seed=11)
+    steps = case.get("steps", 1)
+    want = jp.predict(q, sup, m, denoising_steps=steps, r_threshold=0.25)
+    got = tp.predict(q, sup, m, denoising_steps=steps, r_threshold=0.25)
+    _uint8_close(got.seg_colored, want.seg_colored)
+    assert (got.mask != want.mask).mean() < 0.01
