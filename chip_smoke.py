@@ -58,7 +58,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
      the 1-shot batch-4 episode under `vae_impl` "xla" (34 flash, 94 + 94
      GroupNorm launches per `predict`), "fused" (44 + 44 GroupNorm, 50
      fused) and "mixed", and a batch-1 episode under "auto", each timed and
-     profiled, with each one's device busy and fused-conv device time; b1
+     profiled, with each one's device busy and fused-conv device time;
+     `predict_async`'s host time per b4 episode through the custom ops
+     (`torch.ops.diffews_tpu_torch.*`) against the launchers called
+     directly, in turns (the same prediction); b1
      "auto" against b1 "xla" in turns, three runs each (walls, busy); a
      5-shot episode with two padded shots against the 3-shot episode,
      under "xla" and "fused"; the f32 (TF32 off) fused-vs-xla VAE encode
@@ -87,7 +90,27 @@ Phases, each of which fails the run (non-zero exit) on any error:
      bf16 a repeat is bit-identical, padded shots' content changes no bit
      and a batch-1 cache equals its four copies; in f32 (TF32 off) cached
      equals the joint episode within one uint8 count;
- 13. train: the training step at the same widths (bf16 compute, f32
+ 13. serve: the serving daemon (`diffews_tpu_torch.cli.serve`) and the AOT
+     serving artifact (`diffews_tpu_torch.serving`): (a) tiny f32 daemons
+     from a port-written checkpoint on the card and on the CPU under
+     `vae_impl` "xla" and "auto" (one-off, supports.add + cached, four
+     single-query requests coalesced by the card's micro-batcher) within
+     the episode contract; (b) the full-width bf16 daemon (bsz 4, 1-shot,
+     buckets 1,2,4, `warm_start` timed) over HTTP: a one-off b4 request
+     (34 flash, 94 + 94 GroupNorm) equal to a bare `predict`, supports.add
+     (33 / 65 + 65), cached b4 and b1 requests (18 / 94 + 94) equal to
+     `predict_cached`, bit for bit; load with `tools/cuda_serve_bench.py`
+     (16 clients x 6 cached single-query requests at windows 0 and 30 ms,
+     PNG and raw; depth 1 and 2; 4 clients x 6 one-off requests): q/s,
+     `/v1/stats` p50 / p99, device-lock occupancy, one profile, the
+     micro-batcher replayed without HTTP, the bare `predict_cached` rate at
+     b4 and b1; a cold daemon's first cached request; (c) the full-width
+     b4 artifact exported on the card (seconds, bytes), loaded in a fresh
+     process that imports only `diffews_tpu_torch.serving` and here: 34 /
+     94 + 94 launches per call, equal to `predict` bit for bit, served by a
+     daemon in artifact mode (supports.add 400), its wall against
+     `predict`'s in turns;
+ 14. train: the training step at the same widths (bf16 compute, f32
      masters, remat, AdamW): launches per micro-step (65 flash forward, 32
      dq, 32 dkv, 109 + 109 GroupNorm), step times at gas 1 and 4, peak
      memory, a profile (and the micro-step's forward and backward flash
@@ -110,6 +133,7 @@ import statistics
 import subprocess
 import sys
 import time
+from contextlib import nullcontext
 
 import numpy as np
 
@@ -1218,6 +1242,56 @@ def _padded_invariant(pipe, vae_impl, q5, sup5, m5, sm):
     return pad
 
 
+class _DirectLaunches:
+    """The eager route before the custom ops, for an A/B in one process: the
+    wrappers call the kernels' launchers directly instead of going through
+    `torch.ops.diffews_tpu_torch.*` (which call the same launchers)."""
+
+    def __enter__(self):
+        from diffews_tpu_torch.ops import fused_resnet as fr
+        from diffews_tpu_torch.ops import flash_attention as fa
+        from diffews_tpu_torch.ops import groupnorm as gn
+
+        self.saved = [(fa, "flash_attention_fwd", fa.flash_attention_fwd),
+                      (gn, "gn_stats", gn.gn_stats), (gn, "gn_apply", gn.gn_apply),
+                      (fr, "fused_gn_silu_conv3x3", fr.fused_gn_silu_conv3x3)]
+        fa.flash_attention_fwd = lambda q, k, v, kv_mask, scale: fa._launch(q, k, v, scale,
+                                                                            kv_mask)
+        gn.gn_stats = gn.gn_stats_kernel
+        gn.gn_apply = lambda x, a, b, act: gn.gn_apply_kernel(x, a, b, act=act)
+        fr.fused_gn_silu_conv3x3 = fr._launch
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def _predict_async_host_ab(pipe, args, rounds: int = 3, calls: int = 5) -> dict:
+    """`predict_async`'s host time per call (the call alone; the device idle
+    when it starts, the result awaited after), through the custom ops and
+    through the launchers directly, in turns (ops, direct, direct, ops, ...);
+    both routes must give the same prediction."""
+    import torch
+
+    times = {"custom_ops": [], "direct_launchers": []}
+    outs = {}
+    for rnd in range(rounds):
+        for route in (("custom_ops", "direct_launchers") if rnd % 2 == 0
+                      else ("direct_launchers", "custom_ops")):
+            with (_DirectLaunches() if route == "direct_launchers" else nullcontext()):
+                for _ in range(calls):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    pend = pipe.predict_async(*args, r_threshold=0.25)
+                    times[route].append(time.perf_counter() - t0)
+                    outs[route] = pend.result()
+    check(_same_seg(outs["custom_ops"], outs["direct_launchers"]),
+          "the custom-op route and the direct launcher route predict differently")
+    return {route: {"median_s": statistics.median(t), "min_s": min(t), "all_s": t}
+            for route, t in times.items()}
+
+
 def phase_full(card):
     import torch
     from diffews_tpu_torch.pipeline import DiffewsPipeline
@@ -1250,6 +1324,10 @@ def phase_full(card):
         "b1_vs_b4_row0_frac_differ": float((d1 != 0).mean())})
     emit({"phase": "full_1shot_b4_512px_bf16", **{k: v for k, v in res["one_shot_b4"].items()
                                                    if k != "profile"}})
+    res["predict_async_host_b4"] = {**_predict_async_host_ab(pipe, (q, sup, m)), "card": card}
+    emit({"phase": "full_predict_async_host_b4_custom_ops_vs_direct",
+          **{k: ({kk: vv for kk, vv in v.items() if kk != "all_s"} if isinstance(v, dict) else v)
+             for k, v in res["predict_async_host_b4"].items()}})
     for label in ("fused", "mixed"):
         got, rec = _timed_episode(pipe, label, (q, sup, m), label, card)
         dv = np.abs(got.seg_colored.astype(np.int32) - out.seg_colored.astype(np.int32))
@@ -1513,6 +1591,375 @@ def phase_cached(card):
     del pipe32
     torch.cuda.empty_cache()
     RESULTS["cached"] = res
+    return paths
+
+
+def _unraw(ent) -> np.ndarray:
+    import base64
+
+    return np.frombuffer(base64.b64decode(ent["raw"]), np.uint8).reshape(ent["shape"])
+
+
+def _contract(got: dict, want: dict, what: str):
+    """Two daemons' answers within the episode contract: segs within one
+    uint8 count on < 1% of pixels, masks differing only where the seg does."""
+    mx = frac = 0
+    for i, (sg, sw) in enumerate(zip(got["seg"], want["seg"])):
+        a, b = _unraw(sg), _unraw(sw)
+        m1, f1 = _uint8_close(a, b, f"{what}, query {i}")
+        mx, frac = max(mx, m1), max(frac, f1)
+        flips = _unraw(got["masks"][i]) != _unraw(want["masks"][i])
+        check(not flips[(a == b).all(-1)].any(),
+              f"{what}, query {i}: masks differ where the segs agree")
+    return mx, frac
+
+
+def _serve_tiny(tmp):
+    """(a) The daemon from a tiny port-written checkpoint on the card and on
+    the CPU (`make_server` with `--device`), f32 with TF32 off, under
+    `vae_impl` "xla" and "auto": one-off, supports.add + cached, and four
+    single-query cached requests coalesced by the card's micro-batcher."""
+    import threading
+
+    import torch
+    from diffews_tpu_torch.cli import serve
+    from diffews_tpu_torch.configs import (CLIPTextConfig, SchedulerConfig,
+                                           UNetConfig, VAEConfig)
+    from helpers.port_checkpoint import write_checkpoint
+    import cuda_serve_bench as SB
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ckpt = write_checkpoint(os.path.join(tmp, "tiny_ckpt"), UNetConfig.tiny(), VAEConfig.tiny(),
+                            CLIPTextConfig.tiny(), SchedulerConfig.diffews(), seed=0)
+    q, sup, m = _episode(4, 1, 32, seed=7)
+    enc = lambda xs: [SB.raw(x) for x in xs]
+    out = {}
+    for vae_impl in ("xla", "auto"):
+        servers = {dev: serve.make_server(serve.build_parser().parse_args(
+            ["--checkpoint", ckpt, "--device", dev, "--img-size", "32", "--bsz", "4",
+             "--nshot", "2", "--batch_buckets", "1,2,4", "--vae_impl", vae_impl]))
+            for dev in ("cpu", "cuda")}
+        servers["cuda"].batch_window = 0.3
+        res = {}
+        for dev, ms in servers.items():
+            _zero_counts()
+            r = {"oneoff": ms.segment({"query": enc(q[:2]), "supports": enc(sup[0, :1]),
+                                       "masks": enc(m[0, :1]), "return_seg": True,
+                                       "encoding": "raw"})}
+            cid = ms.add_supports({"images": enc(sup[0, :1]), "masks": enc(m[0, :1])})["cache_id"]
+            r["cached"] = ms.segment({"query": enc(q[:3]), "cache_id": cid, "return_seg": True,
+                                      "encoding": "raw"})
+            singles = [None] * 4
+            barrier = threading.Barrier(4)
+
+            def one(i, ms=ms, cid=cid, singles=singles, barrier=barrier):
+                barrier.wait()
+                singles[i] = ms.segment({"query": enc(q[i:i + 1]), "cache_id": cid,
+                                         "return_seg": True, "encoding": "raw"})
+
+            threads = [threading.Thread(target=one, args=(i,)) for i in range(4)]
+            [t.start() for t in threads]
+            [t.join() for t in threads]
+            r["coalesced"] = {k: [s[k][0] for s in singles] for k in ("seg", "masks")}
+            r["device_calls"] = ms.stats.snapshot()["device_calls"]
+            r["counts"] = _launch_counts()
+            res[dev] = r
+        counts = res["cuda"]["counts"]
+        what = f"serve tiny GPU vs CPU ({vae_impl})"
+        check(counts["flash_attention_fwd"] > 0 and counts["gn_apply"] > 0
+              and (counts["fused_gn_silu_conv3x3"] > 0) == (vae_impl == "auto"),
+              f"{what}: kernel launches {counts}")
+        # 1 one-off, 1 supports.add, 1 cached, the coalesced window: < 4 calls
+        check(res["cuda"]["device_calls"] < 3 + 4,
+              f"{what}: {res['cuda']['device_calls']} device calls: no coalescing")
+        rec = {"kernel_launches": counts, "device_calls_cuda": res["cuda"]["device_calls"]}
+        for kind in ("oneoff", "cached", "coalesced"):
+            rec[kind] = dict(zip(("max_uint8_diff", "frac_differ"),
+                                 _contract(res["cuda"][kind], res["cpu"][kind],
+                                           f"{what}, {kind}")))
+        out[vae_impl] = rec
+    return out
+
+
+SERVE_PX = 512  # phase serve's image size
+
+
+def _serve_load(pipe, sup1, m1, frames, card):
+    """(b) Load through the daemon's HTTP API (`tools/cuda_serve_bench.py`):
+    a fresh daemon per setting, so its `/v1/stats` window holds that run."""
+    from diffews_tpu_torch.cli import serve
+    import cuda_serve_bench as SB
+
+    def daemon(window, depth):
+        return serve.ModelServer(pipe=pipe, bsz=4, nshot=1, img_size=SERVE_PX, r_threshold=0.25,
+                                 batch_window_ms=window, dispatch_depth=depth,
+                                 batch_buckets="1,2,4", model_desc="random-init sd21")
+
+    runs = {}
+    for name, window, depth, mode, oneoff, clients in (
+            ("cached_w0_png", 0, 2, "png", False, 16), ("cached_w30_png", 30, 2, "png", False, 16),
+            ("cached_w0_raw", 0, 2, "raw", False, 16), ("cached_w30_raw", 30, 2, "raw", False, 16),
+            ("cached_w30_raw_depth1", 30, 1, "raw", False, 16),
+            ("oneoff_w0_png", 0, 2, "png", True, 4)):
+        ms = daemon(window, depth)
+        httpd, base = SB.start_daemon(ms)
+        try:
+            enc = SB.raw if mode == "raw" else SB.png
+            if oneoff:
+                bodies = [{"query": enc(f), "supports": [enc(sup1)], "masks": [enc(m1 * 255)]}
+                          for f in frames]
+            else:
+                cid = SB.post(base, "/v1/supports", {"images": [enc(sup1)],
+                                                     "masks": [enc(m1 * 255)]})["cache_id"]
+                bodies = [{"query": enc(f), "cache_id": cid} for f in frames]
+            if mode == "raw":
+                bodies = [{**b, "encoding": "raw"} for b in bodies]
+            SB.post(base, "/v1/segment", bodies[0])
+            run = SB.http_run(base, bodies, clients=clients, reqs=6)
+            if name == "cached_w30_raw":
+                run["profile"] = profile_episode(
+                    lambda: SB.http_run(base, bodies, clients=clients, reqs=2))
+                run["replay"] = SB.replay(ms, cid, frames, clients=clients, reqs=6)
+                run["bare_predict_cached"] = {
+                    f"b{b}": SB.bare_rate(pipe, ms._caches[cid], b, SERVE_PX) for b in (4, 1)}
+                run["dispatch_probe"] = SB.dispatch_probe(pipe, ms._caches[cid], SERVE_PX)
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+        check(run["errors"] == 0 and run["ok"] == clients * 6,
+              f"serve load {name}: {run['errors']} errors, first {run['first_error']}")
+        runs[name] = {"window_ms": window, "dispatch_depth": depth, "payload": mode,
+                      "request": "one-off episode" if oneoff else "cached", **run, "card": card}
+        emit({"phase": f"serve_load_{name}", **{k: v for k, v in runs[name].items()
+                                                if k != "profile"},
+              **({"device_busy_ms": run["profile"].get("device_busy_ms"),
+                  "device_idle_share": run["profile"].get("device_idle_share"),
+                  "wall_ms_profiled": run["profile"].get("wall_ms_profiled")}
+                 if "profile" in run else {})})
+    return runs
+
+
+_ARTIFACT_CHILD = """
+import json, sys, time
+import numpy as np
+t0 = time.time()
+import diffews_tpu_torch.serving as serving
+mod = serving.load(sys.argv[1])
+load_s = time.time() - t0
+e = np.load(sys.argv[2])
+fa = sys.modules["diffews_tpu_torch.ops.flash_attention"].flash_attention
+gn = sys.modules["diffews_tpu_torch.ops.groupnorm"]
+t0 = time.time()
+out = mod(e["q"], e["sup"], e["msk"], e["sm"]).cpu().numpy()
+call_s = time.time() - t0
+np.save(sys.argv[3], out)
+print(json.dumps({"load_s": load_s, "first_call_s": call_s, "device": str(mod.device),
+                  "launches": {"flash_attention_fwd": fa.launches,
+                               "gn_stats": gn.gn_stats_kernel.launches,
+                               "gn_apply": gn.gn_apply_kernel.launches},
+                  "jax_or_reference_loaded": sorted(m for m in sys.modules
+                      if m == "jax" or m.startswith("jax.") or m == "diffews_tpu"
+                      or m.startswith("diffews_tpu."))}))
+"""
+
+
+def _serve_artifact(pipe, tmp, q, sup1, m1, card):
+    """(c) The full-width bf16 1-shot b4 artifact exported on the card, loaded
+    in a fresh process that imports only `diffews_tpu_torch.serving`, and in
+    this one; a daemon in artifact mode."""
+    import torch
+    from diffews_tpu_torch import serving
+    from diffews_tpu_torch.cli import serve
+    import cuda_serve_bench as SB
+
+    art = os.path.join(tmp, "artifact")
+    t0 = time.time()
+    program, manifest = serving.export_predict(pipe, bsz=4, nshot=1, img_size=SERVE_PX)
+    export_s = time.time() - t0
+    serving.write_artifact(program, manifest, art)
+    save_s = time.time() - t0 - export_s
+    nbytes = sum(os.path.getsize(os.path.join(art, f)) for f in os.listdir(art))
+    sup = np.ascontiguousarray(np.broadcast_to(sup1, (4, 1) + sup1.shape))
+    msk = np.ascontiguousarray(np.broadcast_to(m1, (4, 1) + m1.shape))
+    sm = np.ones((4, 1), bool)
+    np.savez(os.path.join(tmp, "episode.npz"), q=q, sup=sup, msk=msk, sm=sm)
+    t0 = time.time()
+    child = subprocess.run([sys.executable, "-c", _ARTIFACT_CHILD, art,
+                            os.path.join(tmp, "episode.npz"), os.path.join(tmp, "child.npy")],
+                           cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+                           capture_output=True, text=True, timeout=600)
+    child_s = time.time() - t0
+    check(child.returncode == 0, f"artifact child process failed: {child.stderr[-3000:]}")
+    child_rec = json.loads(child.stdout.strip().splitlines()[-1])
+    check(not child_rec["jax_or_reference_loaded"] and child_rec["device"] == "cuda"
+          and child_rec["launches"]["flash_attention_fwd"] == 34
+          and child_rec["launches"]["gn_stats"] == 94 and child_rec["launches"]["gn_apply"] == 94,
+          f"artifact child: {child_rec}")
+    child_out = np.load(os.path.join(tmp, "child.npy"))
+
+    # this process calls the program it exported (the fresh process above
+    # loaded the saved one)
+    mod = serving.ServingModule(program, manifest)
+    _zero_counts()
+    got = mod(q, sup, msk, sm).cpu().numpy()
+    counts = _launch_counts()
+    check(counts == EPISODE_LAUNCHES["xla"], f"artifact call launched {counts}")
+    want = pipe.predict(q, sup, msk, shot_mask=sm, r_threshold=0.25).seg_colored
+    no_mask = pipe.predict(q, sup, msk, r_threshold=0.25).seg_colored
+    d_pred, d_child = _diff_stats(got, want), _diff_stats(child_out, got)
+    check(d_pred == (0, 0.0) and d_child == (0, 0.0),
+          f"artifact vs predict {d_pred}, fresh process vs this one {d_child}")
+
+    ms = serve.ModelServer(artifact=mod, bsz=4, nshot=1, img_size=SERVE_PX, r_threshold=0.25,
+                           model_desc="artifact")
+    httpd, base = SB.start_daemon(ms)
+    try:
+        resp = SB.post(base, "/v1/segment", {
+            "query": [SB.raw(x) for x in q], "supports": [SB.raw(sup1)],
+            "masks": [SB.raw(m1)], "return_seg": True, "encoding": "raw"})
+        try:
+            SB.post(base, "/v1/supports", {"images": [SB.raw(sup1)], "masks": [SB.raw(m1)]})
+            add = None
+        except Exception as e:  # noqa: BLE001  (the expected 400)
+            add = getattr(e, "code", repr(e))
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    check(all(np.array_equal(_unraw(s), got[i]) for i, s in enumerate(resp["seg"])),
+          "the artifact daemon's one-off answer differs from the artifact's output")
+    check(add == 400, f"supports.add in artifact mode: {add}")
+
+    # the artifact call's wall and predict's, b4, in turns
+    walls = {"artifact": [], "predict": []}
+    for rnd in range(3):
+        for name in (("artifact", "predict") if rnd % 2 == 0 else ("predict", "artifact")):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            if name == "artifact":
+                mod(q, sup, msk, sm).cpu()
+            else:
+                pipe.predict(q, sup, msk, shot_mask=sm, r_threshold=0.25)
+            walls[name].append(time.time() - t0)
+    del mod, ms, program
+    torch.cuda.empty_cache()
+    return {"export_s": export_s, "save_s": save_s, "artifact_bytes": nbytes,
+            "child_process_s": child_s,
+            "child": child_rec, "kernel_launches": counts,
+            "artifact_equals_predict": True, "fresh_process_equals_this_one": True,
+            "predict_with_all_true_shot_mask_equals_without": _diff_stats(want, no_mask)
+            == (0, 0.0),
+            "walls_s": walls, "wall_s_median": {k: statistics.median(v)
+                                                for k, v in walls.items()},
+            "daemon_artifact_oneoff_equals_artifact": True, "daemon_supports_add_status": add,
+            "card": card}
+
+
+def phase_serve(card):
+    """The serving daemon (`diffews_tpu_torch.cli.serve`) and the AOT
+    serving artifact (`diffews_tpu_torch.serving`) on the card."""
+    import tempfile
+
+    import torch
+    from diffews_tpu_torch.cli import serve
+    from diffews_tpu_torch.pipeline import DiffewsPipeline
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import cuda_serve_bench as SB
+
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        res["tiny"] = _serve_tiny(tmp)
+        emit({"phase": "serve_tiny", "dtype": "float32", "tf32": False, **res["tiny"]})
+
+        # (b) full width, bf16, 512px, vae_impl "xla"
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        pipe = DiffewsPipeline(_full_bundle(), device="cuda", compute_dtype=torch.bfloat16)
+        ms = serve.ModelServer(pipe=pipe, bsz=4, nshot=1, img_size=SERVE_PX, r_threshold=0.25,
+                               batch_buckets="1,2,4", model_desc="random-init sd21")
+        torch.cuda.synchronize()
+        t0 = time.time()
+        ms.warm_start()
+        torch.cuda.synchronize()
+        res["warm_start_s"] = time.time() - t0
+        q, sup, m = _episode(4, 1, SERVE_PX, seed=2)  # phase full's episode
+        sup1, m1 = sup[0, 0], m[0, 0]
+        httpd, base = SB.start_daemon(ms)
+        paths = {}
+        try:
+            def counted(path, body):
+                _zero_counts()
+                out = SB.post(base, path, body)
+                torch.cuda.synchronize()
+                return out, _launch_counts()
+
+            raw_q = [SB.raw(x) for x in q]
+            oneoff, paths["serve_oneoff_b4"] = counted("/v1/segment", {
+                "query": raw_q, "supports": [SB.raw(sup1)], "masks": [SB.raw(m1)],
+                "return_seg": True, "encoding": "raw"})
+            sup4 = np.broadcast_to(sup1, (4, 1) + sup1.shape)
+            m4 = np.broadcast_to(m1.astype(np.float32), (4, 1) + m1.shape)
+            bare = pipe.predict(q, sup4, m4, r_threshold=0.25)
+            check(all(np.array_equal(_unraw(s), bare.seg_colored[i])
+                      and np.array_equal(_unraw(k) > 0, bare.mask[i])
+                      for i, (s, k) in enumerate(zip(oneoff["seg"], oneoff["masks"]))),
+                  "the daemon's one-off b4 answer differs from a bare predict")
+            added, paths["serve_supports_add"] = counted(
+                "/v1/supports", {"images": [SB.raw(sup1)], "masks": [SB.raw(m1)]})
+            cache = ms._caches[added["cache_id"]]
+            for n in (4, 1):
+                got, paths[f"serve_cached_b{n}"] = counted("/v1/segment", {
+                    "query": raw_q[:n], "cache_id": added["cache_id"], "return_seg": True,
+                    "encoding": "raw"})
+                want = pipe.predict_cached(q[:n], cache, r_threshold=0.25)
+                check(all(np.array_equal(_unraw(s), want.seg_colored[i])
+                          for i, s in enumerate(got["seg"])),
+                      f"the daemon's cached b{n} answer differs from predict_cached")
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+        for path, counts in paths.items():
+            expect = {"serve_oneoff_b4": EPISODE_LAUNCHES["xla"],
+                      "serve_supports_add": CACHED_LAUNCHES["xla", "capture"]}.get(
+                          path, CACHED_LAUNCHES["xla", "predict"])
+            check(counts == expect, f"{path} launched {counts}, expected {expect}")
+        res["paths"] = paths
+        emit({"phase": "serve_512px_bf16_exact", "warm_start_s": res["warm_start_s"],
+              "launches": paths, "oneoff_equals_predict": True,
+              "cached_equals_predict_cached": True, "card": card})
+
+        frames = [_episode(1, 1, SERVE_PX, seed=20 + i)[0][0] for i in range(4)]
+        res["load"] = _serve_load(pipe, sup1, m1, frames, card)
+
+        # a cold daemon (kernels already built in this process): the first
+        # cached request's latency, and the second's
+        torch.cuda.empty_cache()
+        cold = serve.ModelServer(pipe=pipe, bsz=4, nshot=1, img_size=SERVE_PX, r_threshold=0.25,
+                                 batch_buckets="1,2,4")
+        httpd, base = SB.start_daemon(cold)
+        try:
+            cid = SB.post(base, "/v1/supports", {"images": [SB.raw(sup1)],
+                                                 "masks": [SB.raw(m1)]})["cache_id"]
+            lat = []
+            for i in range(2):
+                t0 = time.time()
+                SB.post(base, "/v1/segment", {"query": SB.raw(frames[i]), "cache_id": cid})
+                lat.append(time.time() - t0)
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+        res["cold_daemon_cached_request_s"] = {"first": lat[0], "second": lat[1]}
+        emit({"phase": "serve_cold_daemon", **res["cold_daemon_cached_request_s"],
+              "card": card})
+
+        res["artifact"] = _serve_artifact(pipe, tmp, q, sup1, m1, card)
+        paths["artifact_call_b4"] = res["artifact"]["kernel_launches"]
+        emit({"phase": "serve_artifact_512px_bf16", **res["artifact"]})
+        del pipe, ms, cache
+        torch.cuda.empty_cache()
+    RESULTS["serve"] = res
     return paths
 
 
@@ -2012,7 +2459,8 @@ def phase_train(card):
 
 
 def kernel_record(rows, bwd_rows, norm_rows, fused_rows, down_rows, episode_launches,
-                  train_launches, cached_launches, down_launches, eval_launches):
+                  train_launches, cached_launches, down_launches, eval_launches,
+                  serve_launches):
     """One entry per kernel.  `launches` is the count on the path of the
     slice that ported it (the training micro-step for the flash kernels,
     the default episode for the GroupNorm kernels, the `vae_impl="fused"`
@@ -2028,7 +2476,7 @@ def kernel_record(rows, bwd_rows, norm_rows, fused_rows, down_rows, episode_laun
              and r["dtype"] == "bfloat16"][0]
     dmain = [r for r in down_rows
              if tuple(r["shape"]) == DOWN_MAIN_SHAPE and r["dtype"] == "bfloat16"][0]
-    paths = dict(episode_launches, **cached_launches, **eval_launches,
+    paths = dict(episode_launches, **cached_launches, **eval_launches, **serve_launches,
                  train_micro_step_1shot_b1=train_launches,
                  downsample_conv2x_encoder_inputs_b12=down_launches)
     by_path = lambda key: {p: c[key] for p, c in paths.items()}
@@ -2133,7 +2581,7 @@ def kernel_record(rows, bwd_rows, norm_rows, fused_rows, down_rows, episode_laun
 
 
 PHASES = ("device,build,kernel,bwd,norm,fused,downsample,tiny,tiny_train,full,eval,cached,"
-          "train")
+          "serve,train")
 
 
 def main():
@@ -2170,6 +2618,7 @@ def main():
     episode_launches = phase_full(card) if "full" in phases else None
     eval_launches = phase_eval(card) if "eval" in phases else None
     cached_launches = phase_cached(card) if "cached" in phases else None
+    serve_launches = phase_serve(card) if "serve" in phases else None
     train_launches = phase_train(card) if "train" in phases else None
     RESULTS["seconds"] = time.time() - t_start
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
@@ -2178,7 +2627,8 @@ def main():
     if phases != set(PHASES.split(",")):
         fail(f"phases {sorted(phases)} ran; the kernel record needs all of {PHASES}")
     emit(kernel_record(rows, bwd_rows, norm_rows, fused_rows, down_rows, episode_launches,
-                       train_launches, cached_launches, down_launches, eval_launches))
+                       train_launches, cached_launches, down_launches, eval_launches,
+                       serve_launches))
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
 

@@ -39,10 +39,7 @@ from diffews_tpu_torch.data.dataset import FSSDataset
 from diffews_tpu_torch.evaluation import AverageMeter, Evaluator
 from diffews_tpu_torch.evaluation.meter import EvalLogger
 from diffews_tpu_torch.evaluation.vis import Visualizer
-from diffews_tpu_torch.pipeline import DiffewsPipeline, resolve_device
-
-# the reference CLI's attention choices -> the port pipeline's
-ATTN_IMPLS = {"auto": "auto", "xla": "dense", "pallas": "flash"}
+from diffews_tpu_torch.pipeline import ATTN_IMPLS, DiffewsPipeline, resolve_device
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -21,7 +21,10 @@ accumulation, bias added in f32, one rounding to x's dtype.
 Dispatch (`impl`): "auto" and "pallas" launch the kernel on a CUDA tensor
 and take the plain version `downsample_conv2x_reference` on the CPU; "xla"
 is the plain version everywhere.  There is no fallback from the kernel: a
-CUDA tensor it does not take raises.  The backward is the plain version's,
+CUDA tensor it does not take raises.  On the card the kernel is reached
+through the custom op `torch.ops.diffews_tpu_torch.downsample_conv2x`
+(CUDA: the launcher; CPU: the plain version; a fake implementation for
+`torch.export`).  The backward is the plain version's,
 recomputed under autograd, on both devices (the JAX custom VJP does the
 same; the VAE is frozen in DiffewS training).  Launch counter:
 `downsample_conv2x.launches`.
@@ -99,12 +102,31 @@ def _launch(x, w, bias):
     return y
 
 
+@torch.library.custom_op("diffews_tpu_torch::downsample_conv2x", mutates_args=(),
+                         device_types="cuda")
+def downsample_conv2x_op(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """The downsample kernel as a custom op: (B, H/2, W/2, Cout) in x's
+    dtype, contiguous.  CUDA: `_launch`; CPU: the plain version."""
+    return _launch(x, w, bias)
+
+
+@downsample_conv2x_op.register_kernel("cpu")
+def _downsample_cpu(x, w, bias):
+    return downsample_conv2x_reference(x, w, bias).contiguous()
+
+
+@downsample_conv2x_op.register_fake
+def _downsample_fake(x, w, bias):
+    bsz, h, wd, _ = x.shape
+    return x.new_empty((bsz, h // 2, wd // 2, w.shape[0]))
+
+
 def _forward(x, w, bias, impl):
     if impl == "xla" or x.device.type == "cpu":
         return downsample_conv2x_reference(x, w, bias)
     if x.device.type != "cuda":
         raise ValueError(f"no downsample kernel for device {x.device}")
-    return _launch(x, w, bias)
+    return downsample_conv2x_op(x, w, bias)
 
 
 class _DownsampleConv2x(torch.autograd.Function):

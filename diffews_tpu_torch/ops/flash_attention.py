@@ -15,7 +15,11 @@ Dispatch: a CUDA tensor launches the kernels (or raises); a CPU tensor
 takes the plain versions, `flash_attention_reference` (dense f32 softmax
 with the same boolean mask and the same LSE) and
 `flash_attention_bwd_reference` (the backward written as the kernels'
-formula).  There is no fallback from a kernel.  `flash_attention` is one
+formula).  There is no fallback from a kernel.  On the card the forward
+goes through the custom op `torch.ops.diffews_tpu_torch.flash_attention_fwd`
+(CUDA: the kernel's launcher; CPU: the plain version; a fake
+implementation for `torch.export`), so an exported program carries the
+kernel as one node.  `flash_attention` is one
 `torch.autograd.Function` on both devices: it saves (q, k, v, mask, O, LSE)
 and its backward calls `flash_attention_bwd`.  `flash_attention_lse` is
 forward-only, as in the JAX package: on the card it raises when an input
@@ -119,6 +123,30 @@ def _launch(q, k, v, scale, kv_mask):
     return out, lse
 
 
+@torch.library.custom_op("diffews_tpu_torch::flash_attention_fwd", mutates_args=(),
+                         device_types="cuda")
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        kv_mask: Optional[torch.Tensor],
+                        scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel as a custom op: (out (B, Sq, H, D) like q, lse
+    (B, Sq, H) f32), both contiguous.  CUDA: `_launch`; CPU: the plain
+    version."""
+    return _launch(q, k, v, scale, kv_mask)
+
+
+@flash_attention_fwd.register_kernel("cpu")
+def _flash_attention_fwd_cpu(q, k, v, kv_mask, scale):
+    out, lse = flash_attention_reference(q, k, v, scale=scale, kv_mask=kv_mask)
+    return out.contiguous(), lse.contiguous()
+
+
+@flash_attention_fwd.register_fake
+def _flash_attention_fwd_fake(q, k, v, kv_mask, scale):
+    b, sq, h, _ = q.shape
+    return (torch.empty_like(q, memory_format=torch.contiguous_format),
+            q.new_empty((b, sq, h), dtype=torch.float32))
+
+
 def _requires_grad(*ts) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
@@ -128,7 +156,7 @@ def _forward(q, k, v, scale, kv_mask):
         return flash_attention_reference(q, k, v, scale=scale, kv_mask=kv_mask)
     if q.device.type != "cuda":
         raise ValueError(f"no flash attention for device {q.device}")
-    return _launch(q, k, v, scale, kv_mask)
+    return flash_attention_fwd(q, k, v, kv_mask, float(scale))
 
 
 def flash_attention_lse(

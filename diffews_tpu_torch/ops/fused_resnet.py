@@ -20,7 +20,10 @@ Dispatch (`impl`): "auto" launches the kernel on a CUDA tensor and takes
 the plain version `gn_silu_conv3x3_reference` on the CPU (the JAX package:
 the kernel on the TPU, XLA elsewhere); "pallas" names the kernel (its plain
 version on the CPU); "xla" is the plain version everywhere.  There is no
-fallback from the kernel: a CUDA tensor it does not take raises.  The
+fallback from the kernel: a CUDA tensor it does not take raises.  On the
+card the kernel is reached through the custom op
+`torch.ops.diffews_tpu_torch.fused_gn_silu_conv3x3` (CUDA: the launcher;
+CPU: the plain version; a fake implementation for `torch.export`).  The
 backward is the plain version's, recomputed under autograd, on both
 devices (the VAE is frozen in DiffewS training; the backward is there for
 completeness, as in the JAX package).  Launch counter:
@@ -115,12 +118,37 @@ def _launch(x, a, b, w, bias, residual):
     return y, s1, s2
 
 
+@torch.library.custom_op("diffews_tpu_torch::fused_gn_silu_conv3x3", mutates_args=(),
+                         device_types="cuda")
+def fused_gn_silu_conv3x3(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, w: torch.Tensor,
+                          bias: torch.Tensor, residual: Optional[torch.Tensor]
+                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The fused kernel as a custom op: (y (B, H, W, Cout) in x's dtype, s1,
+    s2 (B, Cout) f32), all contiguous.  CUDA: `_launch`; CPU: the plain
+    version."""
+    return _launch(x, a, b, w, bias, residual)
+
+
+@fused_gn_silu_conv3x3.register_kernel("cpu")
+def _fused_cpu(x, a, b, w, bias, residual):
+    y, s1, s2 = gn_silu_conv3x3_reference(x, a, b, w, bias, residual)
+    return y.contiguous(), s1, s2
+
+
+@fused_gn_silu_conv3x3.register_fake
+def _fused_fake(x, a, b, w, bias, residual):
+    bsz, h, wd, _ = x.shape
+    cout = w.shape[0]
+    return (x.new_empty((bsz, h, wd, cout)), x.new_empty((bsz, cout), dtype=torch.float32),
+            x.new_empty((bsz, cout), dtype=torch.float32))
+
+
 def _forward(x, a, b, w, bias, residual, impl):
     if impl == "xla" or x.device.type == "cpu":
         return gn_silu_conv3x3_reference(x, a, b, w, bias, residual)
     if x.device.type != "cuda":
         raise ValueError(f"no fused resnet kernel for device {x.device}")
-    return _launch(x, a, b, w, bias, residual)
+    return fused_gn_silu_conv3x3(x, a, b, w, bias, residual)
 
 
 class _GnSiluConv3x3(torch.autograd.Function):

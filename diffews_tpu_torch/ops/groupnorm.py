@@ -26,7 +26,11 @@ on every backend: on the TPU the Pallas boundaries moved XLA's layout
 copies instead of removing them.  On the card the activations are
 contiguous NHWC tensors and a kernel boundary costs no copy, so "auto"
 takes the kernels there, as `fused_resnet.gn_silu_conv3x3` does.  There is
-no fallback from a kernel: a CUDA tensor it does not take raises.
+no fallback from a kernel: a CUDA tensor it does not take raises.  On the
+card the two kernels are reached through the custom ops
+`torch.ops.diffews_tpu_torch.gn_stats` and `.gn_apply` (CUDA: the
+launchers below; CPU: the plain statistics and apply; fake
+implementations for `torch.export`).
 
 Differentiation: one `torch.autograd.Function` on both devices whose
 backward differentiates the plain formula, recomputed under autograd (the
@@ -39,12 +43,13 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from diffews_tpu_torch.ops.fused_resnet import gn_affine
+from diffews_tpu_torch.ops.fused_resnet import gn_stats as plain_stats
 
 IMPLS = ("auto", "xla", "pallas")
 ACTS = (None, "none", "silu")
@@ -145,12 +150,56 @@ gn_stats_kernel.launches = 0
 gn_apply_kernel.launches = 0
 
 
+def gn_apply_reference(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                       act: str = "none") -> torch.Tensor:
+    """The apply kernel's arithmetic in plain torch: x·a + b in x's dtype
+    (product, then sum), then SiLU when act == "silu"; contiguous."""
+    y = x * a[:, None, None, :] + b[:, None, None, :]
+    return (F.silu(y) if act == "silu" else y).contiguous()
+
+
+@torch.library.custom_op("diffews_tpu_torch::gn_stats", mutates_args=(), device_types="cuda")
+def gn_stats(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-channel f32 (Σx, Σx²) of a (B, H, W, C) tensor as a custom op:
+    two contiguous (B, C) f32 tensors.  CUDA: the stats kernel; CPU:
+    `fused_resnet.gn_stats`."""
+    return gn_stats_kernel(x)
+
+
+@gn_stats.register_kernel("cpu")
+def _gn_stats_cpu(x):
+    return plain_stats(x)
+
+
+@gn_stats.register_fake
+def _gn_stats_fake(x):
+    shape = (x.shape[0], x.shape[-1])
+    return x.new_empty(shape, dtype=torch.float32), x.new_empty(shape, dtype=torch.float32)
+
+
+@torch.library.custom_op("diffews_tpu_torch::gn_apply", mutates_args=(), device_types="cuda")
+def gn_apply(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, act: str) -> torch.Tensor:
+    """y = act(x·a + b) as a custom op (act "silu" or "none"), contiguous
+    like x.  CUDA: the apply kernel; CPU: `gn_apply_reference`."""
+    return gn_apply_kernel(x, a, b, act=act)
+
+
+@gn_apply.register_kernel("cpu")
+def _gn_apply_cpu(x, a, b, act):
+    return gn_apply_reference(x, a, b, act)
+
+
+@gn_apply.register_fake
+def _gn_apply_fake(x, a, b, act):
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+
 def _kernels(x, weight, bias, groups, eps, act):
     """The kernel path: stats kernel, group fold in torch, apply kernel."""
-    s1, s2 = gn_stats_kernel(x)
+    s1, s2 = gn_stats(x)
     bsz, h, w, c = x.shape
     a, b = gn_affine(s1, s2, weight, bias, groups=groups, n=h * w * (c // groups), eps=eps)
-    return gn_apply_kernel(x, a.to(x.dtype), b.to(x.dtype), act=act)
+    return gn_apply(x, a.to(x.dtype), b.to(x.dtype), act or "none")
 
 
 def _forward(x, weight, bias, groups, eps, act, impl):

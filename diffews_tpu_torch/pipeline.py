@@ -45,6 +45,8 @@ from diffews_tpu_torch.scheduler import DDIMScheduler
 from diffews_tpu_torch.utils import to_device
 
 VAE_IMPLS = ("xla", "fused", "mixed", "auto")
+# the JAX CLIs' --attn_impl choices -> the pipeline's attn_impl
+ATTN_IMPLS = {"auto": "auto", "xla": "dense", "pallas": "flash"}
 
 
 @dataclasses.dataclass

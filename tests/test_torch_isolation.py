@@ -51,6 +51,8 @@ def test_importing_the_port_loads_no_jax():
             "import diffews_tpu_torch.ops.downsample\n"
             "import diffews_tpu_torch.cli.evaluate, diffews_tpu_torch.data.dataset\n"
             "import diffews_tpu_torch.evaluation, diffews_tpu_torch.native\n"
+            "import diffews_tpu_torch.serving, diffews_tpu_torch.cli.serve\n"
+            "import diffews_tpu_torch.cli.export\n"
             "bad = [m for m in sys.modules if any(m == t or m.startswith(t + '.')\n"
             "       for t in ('jax', 'optax', 'diffews_tpu'))]\n"
             "assert not bad, bad\n")
