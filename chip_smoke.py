@@ -100,8 +100,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
      (34 flash, 94 + 94 GroupNorm) equal to a bare `predict`, supports.add
      (33 / 65 + 65), cached b4 and b1 requests (18 / 94 + 94) equal to
      `predict_cached`, bit for bit; load with `tools/cuda_serve_bench.py`
-     (16 clients x 6 cached single-query requests at windows 0 and 30 ms,
-     PNG and raw; depth 1 and 2; 4 clients x 6 one-off requests): q/s,
+     (16 clients x 3 (window 0) or 6 (window 30 ms) cached single-query
+     requests, PNG and raw; depth 1 and 2; 4 clients x 6 one-off
+     requests): q/s,
      `/v1/stats` p50 / p99, device-lock occupancy, one profile, the
      micro-batcher replayed without HTTP, the bare `predict_cached` rate at
      b4 and b1; a cold daemon's first cached request; (c) the full-width
@@ -116,7 +117,25 @@ Phases, each of which fails the run (non-zero exit) on any error:
      memory, a profile (and the micro-step's forward and backward flash
      ms), the f32 kernel path against the dense path,
      padded-shot invariance of loss and gradients, and the attn-mask
-     variant's decaying `conv_in_ref`.
+     variant's decaying `conv_in_ref`;
+ 15. train_cli: the training CLI (`diffews_tpu_torch.cli.train`) on a
+     synthetic COCO tree: (a) tiny f32 (TF32 off) runs from a checkpoint
+     written by the port's savers, the card against the CPU (losses per
+     step from `--metrics_jsonl` within rtol 1e-4, checkpoint-4's weights
+     under phase tiny_train's rule), also with `--lora_rank 2 --use_ema`,
+     and a preemption after step 3 plus a `latest` resume bit for bit equal
+     to the straight run on the card; (b) full width, bf16, 512px, 1-shot
+     b1: a seeded SD-2.1 / SD-VAE / ViT-H checkpoint written by the savers
+     (seconds, bytes), 3 steps with checkpoints at 2 and 3 and validation
+     at 2 (each step 65 flash / 32 dq / 32 dkv / 109 + 109 GroupNorm, each
+     validation episode 34 / 94 + 94), then checkpoint-2 resumed in a fresh
+     directory under `cudnn.deterministic`: checkpoint-3 and the step-3
+     loss bit for bit equal; step walls, snapshot and write seconds and
+     bytes, load and resume seconds, peak memory; (c) LoRA rank 8 on the
+     attention projections, 2 steps: the same launches, `unet/` float32
+     and different from the base exactly at the adapted sites; (d)
+     `tools/torch_train_capability.py` at the CI-bound 60 steps / 200 VAE
+     steps / 16 episodes under its pass rule.
 
 Every line before the last is plain text or JSON; the last line is
 `{"ok": true, "device": {...}}`.  Detailed results also go to
@@ -1697,6 +1716,8 @@ def _serve_load(pipe, sup1, m1, frames, card):
                                  batch_buckets="1,2,4", model_desc="random-init sd21")
 
     runs = {}
+    # window 0 serves one query a call (≈ 3.5–4 q/s): 3 requests a client
+    # there keep the phase's time, 6 elsewhere
     for name, window, depth, mode, oneoff, clients in (
             ("cached_w0_png", 0, 2, "png", False, 16), ("cached_w30_png", 30, 2, "png", False, 16),
             ("cached_w0_raw", 0, 2, "raw", False, 16), ("cached_w30_raw", 30, 2, "raw", False, 16),
@@ -1716,7 +1737,8 @@ def _serve_load(pipe, sup1, m1, frames, card):
             if mode == "raw":
                 bodies = [{**b, "encoding": "raw"} for b in bodies]
             SB.post(base, "/v1/segment", bodies[0])
-            run = SB.http_run(base, bodies, clients=clients, reqs=6)
+            reqs = 3 if window == 0 and not oneoff else 6
+            run = SB.http_run(base, bodies, clients=clients, reqs=reqs)
             if name == "cached_w30_raw":
                 run["profile"] = profile_episode(
                     lambda: SB.http_run(base, bodies, clients=clients, reqs=2))
@@ -1727,9 +1749,10 @@ def _serve_load(pipe, sup1, m1, frames, card):
         finally:
             httpd.shutdown()
             httpd.server_close()
-        check(run["errors"] == 0 and run["ok"] == clients * 6,
+        check(run["errors"] == 0 and run["ok"] == clients * reqs,
               f"serve load {name}: {run['errors']} errors, first {run['first_error']}")
         runs[name] = {"window_ms": window, "dispatch_depth": depth, "payload": mode,
+                      "requests_per_client": reqs,
                       "request": "one-off episode" if oneoff else "cached", **run, "card": card}
         emit({"phase": f"serve_load_{name}", **{k: v for k, v in runs[name].items()
                                                 if k != "profile"},
@@ -2458,9 +2481,387 @@ def phase_train(card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase train_cli: the training CLI (`diffews_tpu_torch.cli.train`)
+# ---------------------------------------------------------------------------
+
+
+def _du(path) -> int:
+    """Bytes of the files under `path`."""
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def _jsonl(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+class _CountedSteps:
+    """The CLI's step function with every call's kernel launches recorded
+    (counts read just before and just after the call) and its synced wall
+    (the device drained before it, the loss read after it)."""
+
+    def __init__(self, make):
+        self.make, self.calls = make, []
+
+    def __call__(self, *a, **kw):
+        import torch
+        from diffews_tpu_torch.ops.flash_attention import flash_attention_bwd
+
+        step = self.make(*a, **kw)
+
+        def counts():
+            c = _launch_counts()
+            c["flash_attention_bwd_dq"] = flash_attention_bwd.dq_launches
+            c["flash_attention_bwd_dkv"] = flash_attention_bwd.dkv_launches
+            return c
+
+        def run(*args):
+            torch.cuda.synchronize()
+            before, t0 = counts(), time.perf_counter()
+            state, m = step(*args)
+            float(m["loss"])
+            self.calls.append({"launches": {k: v - before[k] for k, v in counts().items()},
+                               "synced_s": time.perf_counter() - t0})
+            return state, m
+
+        return run
+
+
+TRAIN_CLI_LAUNCHES = {"flash_attention_fwd": 65, "flash_attention_bwd_dq": 32,
+                      "flash_attention_bwd_dkv": 32, "gn_stats": 109, "gn_apply": 109,
+                      "fused_gn_silu_conv3x3": 0, "downsample_conv2x": 0}
+
+
+def _train_cli_tiny(tmp, data):
+    """(a) tiny f32 (TF32 off) CLI runs, the card against the CPU, with
+    float32 first moments (as phase tiny_train: card-vs-CPU gradient noise
+    must not flip a bf16 rounding): losses per step from `--metrics_jsonl`
+    within rtol 1e-4, checkpoint-4's weights under `_params_close`; the same
+    with `--lora_rank 2 --use_ema` on the adapters; a preemption after step
+    3 plus a `latest` resume on the card bit for bit equal to the straight
+    run's checkpoint-4."""
+    import functools
+    import shutil
+
+    import torch
+    from diffews_tpu_torch import checkpoint as TCK
+    from diffews_tpu_torch.cli import train as TT
+    from diffews_tpu_torch.configs import (CLIPTextConfig, SchedulerConfig,
+                                           UNetConfig, VAEConfig)
+    from diffews_tpu_torch.training import checkpoints as tck
+    from helpers.port_checkpoint import write_checkpoint
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ckpt = write_checkpoint(os.path.join(tmp, "tiny_ckpt"), UNetConfig.tiny(), VAEConfig.tiny(),
+                            CLIPTextConfig.tiny(), SchedulerConfig.diffews(), seed=0,
+                            safetensors=True)
+    lr, steps = 1e-3, 4
+
+    def argv(out, dev, *extra):
+        return ["--pretrained_model_name_or_path", ckpt, "--datapath", data,
+                "--benchmark", "coco", "--fold", "0", "--nshot", "2", "--resolution", "32",
+                "--train_batch_size", "2", "--gradient_accumulation_steps", "2",
+                "--max_train_steps", str(steps), "--checkpointing_steps", "1",
+                "--logging_steps", "1", "--learning_rate", str(lr),
+                "--mixed_precision", "no", "--seed", "0", "--output_dir", out,
+                "--metrics_jsonl", os.path.join(out, "metrics.jsonl"), "--device", dev,
+                *extra]
+
+    cfg_f32 = functools.partial(TT.TrainerConfig, adam_mu_dtype=torch.float32)
+    out = {}
+    for label, extra in (("full", ()), ("lora_ema", ("--lora_rank", "2", "--use_ema"))):
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            d = os.path.join(tmp, f"tiny_{label}_{dev}")
+            orig = TT.TrainerConfig
+            TT.TrainerConfig = cfg_f32
+            try:
+                _zero_counts()
+                TT.main(argv(d, dev, *extra))
+                counts = _launch_counts()
+            finally:
+                TT.TrainerConfig = orig
+            runs[dev] = (d, counts)
+        (d_cpu, _), (d_gpu, counts) = runs["cpu"], runs["cuda"]
+        what = f"train_cli tiny card vs CPU ({label})"
+        check(counts["flash_attention_fwd"] > 0 and counts["gn_apply"] > 0,
+              f"{what}: kernel launches {counts}")
+        l_cpu = [r["loss"] for r in _jsonl(os.path.join(d_cpu, "metrics.jsonl"))]
+        l_gpu = [r["loss"] for r in _jsonl(os.path.join(d_gpu, "metrics.jsonl"))]
+        check(len(l_cpu) == len(l_gpu) == steps
+              and all(abs(a - c) <= 1e-4 * abs(c) for a, c in zip(l_gpu, l_cpu)),
+              f"{what}: losses {l_gpu} on the card, {l_cpu} on the CPU")
+        ts = lambda d, s: tck.read_train_state(os.path.join(d, f"checkpoint-{s}"))  # noqa: E731
+        mu_hist = [ts(d_cpu, s)["opt_state"]["mu"] for s in range(1, steps + 1)]
+        if label == "full":
+            got = TCK.load_unet_state(os.path.join(d_gpu, f"checkpoint-{steps}", "unet"))
+            want = TCK.load_unet_state(os.path.join(d_cpu, f"checkpoint-{steps}", "unet"))
+        else:
+            got, want = ts(d_gpu, steps)["lora"], ts(d_cpu, steps)["lora"]
+        params = _params_close(got, want, mu_hist, lr, steps, what)
+        out[label] = {"loss_cuda": l_gpu, "loss_cpu": l_cpu, "kernel_launches": counts,
+                      **params}
+        if label == "full":
+            # preempted after step 3, resumed from `latest`, on the card
+            d = os.path.join(tmp, "tiny_preempted")
+
+            class _TripAfter:
+                calls = 0
+
+                def is_set(self):
+                    self.calls += 1
+                    return self.calls >= 3
+
+            orig_cfg, orig_h = TT.TrainerConfig, TT._install_preemption_handler
+            TT.TrainerConfig = cfg_f32
+            try:
+                TT._install_preemption_handler = lambda: (_TripAfter(), lambda: None)
+                rep = TT.main(argv(d, "cuda"))
+                TT._install_preemption_handler = orig_h
+                check(rep["preempted"] and rep["global_step"] == 3
+                      and not os.path.exists(os.path.join(d, "checkpoint-4")),
+                      f"{what}: the preempted run ended at {rep['global_step']}")
+                TT.main(argv(d, "cuda", "--resume_from_checkpoint", "latest"))
+            finally:
+                TT.TrainerConfig, TT._install_preemption_handler = orig_cfg, orig_h
+            a = TCK.load_unet_state(os.path.join(d, f"checkpoint-{steps}", "unet"))
+            differ = [n for n in got if not torch.equal(a[n], got[n])]
+            same = not differ
+            check(same, f"{what}: the preempted + resumed run differs from the straight one "
+                        f"in {len(differ)} weights ({differ[:3]})")
+            out[label]["preempt_resume_bit_identical"] = same
+            shutil.rmtree(d)
+        for d in {d_cpu, d_gpu}:
+            shutil.rmtree(d)
+    return out
+
+
+def _loss_at(report, step):
+    return [r["loss"] for r in report["log"] if r["step"] == step][0]
+
+
+def _step_wall(report, step):
+    """The CLI's wall from the log of `step - 1` to that of `step` (data,
+    upload, step and the loss's read)."""
+    walls = {r["step"]: r["wall_s"] for r in report["log"]}
+    return walls[step] - walls[step - 1]
+
+
+def _train_cli_full(tmp, data, card, disk):
+    """(b) full width, full fine-tuning, and (c) LoRA, through the CLI."""
+    import shutil
+
+    import torch
+    from diffews_tpu_torch import checkpoint as TCK
+    from diffews_tpu_torch import pipeline as TP
+    from diffews_tpu_torch.cli import train as TT
+    from diffews_tpu_torch.configs import (CLIPTextConfig, SchedulerConfig,
+                                           UNetConfig, VAEConfig)
+    from diffews_tpu_torch.training import checkpoints as tck
+    from diffews_tpu_torch.training import lora as lora_lib
+    from helpers.port_checkpoint import write_checkpoint
+
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    res = {}
+    t0 = time.time()
+    ckpt = write_checkpoint(os.path.join(tmp, "full_ckpt"), UNetConfig.sd21(), VAEConfig.sd(),
+                            CLIPTextConfig.sd21(), SchedulerConfig.diffews(), seed=0,
+                            safetensors=True, device="cuda")
+    torch.cuda.empty_cache()
+    res["base_checkpoint"] = {"write_s": time.time() - t0, "bytes": _du(ckpt),
+                              "unet_bytes": _du(os.path.join(ckpt, "unet"))}
+    disk.append(_du(tmp))
+
+    def argv(out, *extra):
+        return ["--pretrained_model_name_or_path", ckpt, "--datapath", data,
+                "--benchmark", "coco", "--fold", "0", "--nshot", "1", "--resolution", "512",
+                "--train_batch_size", "1", "--gradient_accumulation_steps", "1",
+                "--logging_steps", "1", "--seed", "0", "--output_dir", out,
+                "--device", "cuda", *extra]
+
+    def run(make_attr, owner, args):
+        """One CLI run with its steps counted; validation episodes counted
+        through `DiffewsPipeline.predict`."""
+        counted = _CountedSteps(getattr(owner, make_attr))
+        val = []
+        orig_predict = TP.DiffewsPipeline.predict
+
+        def predict(self, *a, **kw):
+            before = _launch_counts()
+            out = orig_predict(self, *a, **kw)
+            val.append({k: v - before[k] for k, v in _launch_counts().items()})
+            return out
+
+        setattr(owner, make_attr, counted)
+        TP.DiffewsPipeline.predict = predict
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t1 = time.time()
+            report = TT.main(args)
+            torch.cuda.synchronize()
+            wall = time.time() - t1
+        finally:
+            setattr(owner, make_attr, counted.make)
+            TP.DiffewsPipeline.predict = orig_predict
+        report.update(wall_s=wall, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                      steps=counted.calls, validation=val)
+        torch.cuda.empty_cache()
+        return report
+
+    # (b) full fine-tuning, 3 steps, checkpoints at 2 and 3, validation at 2;
+    # then checkpoint-2 resumed in a fresh directory up to step 3
+    straight_dir = os.path.join(tmp, "full_straight")
+    resumed_dir = os.path.join(tmp, "full_resumed")
+    common = ("--max_train_steps", "3", "--checkpointing_steps", "2")
+    straight = run("make_train_step", TT, argv(straight_dir, *common, "--validation_steps",
+                                              "2", "--validation_episodes", "2"))
+    disk.append(_du(tmp))
+    for i, s in enumerate(straight["steps"]):
+        check(s["launches"] == TRAIN_CLI_LAUNCHES,
+              f"train_cli full step {i + 1} launched {s['launches']}, expected "
+              f"{TRAIN_CLI_LAUNCHES}")
+    check(len(straight["validation"]) == 2
+          and all(v == EPISODE_LAUNCHES["xla"] for v in straight["validation"]),
+          f"train_cli validation episodes launched {straight['validation']}")
+    ck3 = os.path.join(straight_dir, "checkpoint-3")
+    want = TCK.load_unet_state(os.path.join(ck3, "unet"))
+    want_state = tck.read_train_state(ck3)
+    want_mu = {n: t.clone() for n, t in want_state["opt_state"]["mu"].items()}
+    del want_state
+    shutil.rmtree(ck3)
+    resumed = run("make_train_step", TT, argv(resumed_dir, *common,
+                                              "--resume_from_checkpoint",
+                                              os.path.join(straight_dir, "checkpoint-2")))
+    disk.append(_du(tmp))
+    got = TCK.load_unet_state(os.path.join(resumed_dir, "checkpoint-3", "unet"))
+    got_mu = tck.read_train_state(os.path.join(resumed_dir, "checkpoint-3"))["opt_state"]["mu"]
+    differ = [n for n in want if not torch.equal(got[n], want[n])]
+    mu_differ = [n for n in want_mu if not torch.equal(got_mu[n], want_mu[n])]
+    loss_same = _loss_at(straight, 3) == _loss_at(resumed, 3)
+    check(not differ and not mu_differ and loss_same,
+          f"train_cli full: the resumed checkpoint-3 differs from the straight run's in "
+          f"{len(differ)} weights ({differ[:3]}) and {len(mu_differ)} first moments; "
+          f"step-3 loss {_loss_at(resumed, 3)} vs {_loss_at(straight, 3)}")
+    del got, got_mu, want_mu
+    shutil.rmtree(straight_dir)
+    shutil.rmtree(resumed_dir)
+    keep = ("load_s", "resume_s", "trainable_params", "saves", "wall_s", "peak_mem_gb")
+    res["full"] = {
+        "straight": {k: straight.get(k) for k in keep},
+        "resumed": {k: resumed.get(k) for k in keep},
+        "losses": [r["loss"] for r in straight["log"]],
+        "resumed_step3_loss_bit_identical": loss_same,
+        "resumed_checkpoint3_bit_identical": True,
+        "launches_per_micro_step": straight["steps"][0]["launches"],
+        "validation_episode_launches": straight["validation"][0],
+        "cli_step2_wall_s": _step_wall(straight, 2),
+        "cli_resumed_step3_wall_s": resumed["log"][0]["wall_s"],
+        "step_fn_synced_s": [s["synced_s"] for s in straight["steps"]],
+        "card": card}
+    emit({"phase": "train_cli_full_1shot_b1_512px_bf16", **res["full"]})
+
+    # (c) LoRA rank 8 on the attention projections, 2 steps, checkpoint at 2
+    lora_dir = os.path.join(tmp, "lora")
+    lora = run("make_lora_train_step", lora_lib,
+               argv(lora_dir, "--max_train_steps", "2", "--checkpointing_steps", "2",
+                    "--lora_rank", "8", "--lora_targets", "attn"))
+    disk.append(_du(tmp))
+    for i, s in enumerate(lora["steps"]):
+        check(s["launches"] == TRAIN_CLI_LAUNCHES,
+              f"train_cli LoRA step {i + 1} launched {s['launches']}")
+    merged = TCK.load_unet_state(os.path.join(lora_dir, "checkpoint-2", "unet"))
+    base = TCK.load_unet_state(os.path.join(ckpt, "unet"))
+    sites = {p + ".weight" for p in lora_lib.lora_sites(base, lora_lib.attn_target)}
+    wrong = [n for n, t in merged.items()
+             if t.dtype != torch.float32 or torch.equal(t, base[n]) == (n in sites)]
+    check(set(merged) == set(base) and not wrong,
+          f"train_cli LoRA: unet/ must be f32 and differ from the base exactly at the "
+          f"{len(sites)} adapted sites; wrong: {wrong[:4]}")
+    del merged, base
+    shutil.rmtree(lora_dir)
+    res["lora"] = {
+        "rank": 8, "targets": "attn", "adapted_sites": len(sites),
+        "trainable_params": lora["trainable_params"],
+        "trainable_params_full": res["full"]["straight"]["trainable_params"],
+        "launches_per_micro_step": lora["steps"][0]["launches"],
+        "cli_step2_wall_s": _step_wall(lora, 2),
+        "step_fn_synced_s": [s["synced_s"] for s in lora["steps"]],
+        "peak_mem_gb": lora["peak_mem_gb"],
+        "peak_mem_gb_full": res["full"]["straight"]["peak_mem_gb"],
+        "saves": lora["saves"], "unet_f32_differs_at_adapted_sites_only": True, "card": card}
+    emit({"phase": "train_cli_lora8_1shot_b1_512px_bf16", **res["lora"]})
+    shutil.rmtree(ckpt)
+    launches = {"train_cli_micro_step_1shot_b1": res["full"]["launches_per_micro_step"],
+                "train_cli_lora_micro_step_1shot_b1": res["lora"]["launches_per_micro_step"],
+                "train_cli_validation_episode_1shot_b1": dict(
+                    res["full"]["validation_episode_launches"], flash_attention_bwd_dq=0,
+                    flash_attention_bwd_dkv=0)}
+    return res, launches
+
+
+def _train_cli_capability(tmp, card):
+    """(d) `tools/torch_train_capability.py` on the card under its pass
+    rule, at the CI-bound sizes of `tests/test_training.py:483-518` (60
+    steps, 200 VAE steps, 16 episodes, 4 validation episodes): the JAX
+    artifact's sizes (400 / 600 / 60) took 133 s on the card, past the
+    phase's budget (PERF.md, PR 10)."""
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import torch_train_capability as cap
+
+    rep = cap.main(["--device", "cuda", "--workdir", os.path.join(tmp, "capability"),
+                    "--steps", "60", "--vae_steps", "200", "--episodes", "16",
+                    "--validation_episodes", "4"])
+    check(not rep["failed"], f"train_cli capability: {rep['failed']}: {rep}")
+    rep["card"] = card
+    rep["jax_artifact_cpu"] = "19.0 -> 95.0 mIoU (artifacts/train_capability.json; CPU)"
+    return rep
+
+
+def phase_train_cli(card):
+    """The training CLI on the card: (a) tiny card vs CPU, (b) full width
+    full fine-tuning with a bit-exact resume, (c) full width LoRA, (d) the
+    capability run."""
+    import tempfile
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from helpers.synthetic_data import make_coco
+
+    import torch
+
+    t0 = time.time()
+    res, disk = {}, []
+    # bit-exact resume on the card needs deterministic cuDNN algorithms (a
+    # process setting, not a CLI flag)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    with tempfile.TemporaryDirectory() as tmp:
+        import shutil
+
+        res["disk_free_gb_at_start"] = shutil.disk_usage(tmp).free / 1e9
+        data = make_coco(os.path.join(tmp, "data"))
+        res["tiny"] = _train_cli_tiny(tmp, data)
+        emit({"phase": "train_cli_tiny", "dtype": "float32", "tf32": False, **res["tiny"]})
+        full, launches = _train_cli_full(tmp, data, card, disk)
+        res.update(full)
+        res["capability"] = _train_cli_capability(tmp, card)
+        emit({"phase": "train_cli_capability",
+              **{k: v for k, v in res["capability"].items() if k != "workdir"}})
+    torch.backends.cudnn.deterministic = det
+    res["seconds"] = time.time() - t0
+    res["peak_disk_gb"] = max(disk) / 1e9
+    emit({"phase": "train_cli", "seconds": res["seconds"], "peak_disk_gb": res["peak_disk_gb"],
+          "disk_free_gb_at_start": res["disk_free_gb_at_start"]})
+    RESULTS["train_cli"] = res
+    return launches
+
+
 def kernel_record(rows, bwd_rows, norm_rows, fused_rows, down_rows, episode_launches,
                   train_launches, cached_launches, down_launches, eval_launches,
-                  serve_launches):
+                  serve_launches, train_cli_launches):
     """One entry per kernel.  `launches` is the count on the path of the
     slice that ported it (the training micro-step for the flash kernels,
     the default episode for the GroupNorm kernels, the `vae_impl="fused"`
@@ -2477,7 +2878,7 @@ def kernel_record(rows, bwd_rows, norm_rows, fused_rows, down_rows, episode_laun
     dmain = [r for r in down_rows
              if tuple(r["shape"]) == DOWN_MAIN_SHAPE and r["dtype"] == "bfloat16"][0]
     paths = dict(episode_launches, **cached_launches, **eval_launches, **serve_launches,
-                 train_micro_step_1shot_b1=train_launches,
+                 **train_cli_launches, train_micro_step_1shot_b1=train_launches,
                  downsample_conv2x_encoder_inputs_b12=down_launches)
     by_path = lambda key: {p: c[key] for p, c in paths.items()}
     src = "diffews_tpu_torch/ops/csrc/"
@@ -2500,7 +2901,8 @@ def kernel_record(rows, bwd_rows, norm_rows, fused_rows, down_rows, episode_laun
             "name": name, "route": "cuda", "source": src + "flash_attention_bwd.cu",
             "replaces": f"diffews_tpu/ops/flash_attention.py:{line}",
             "launches": train_launches[name],
-            "launches_by_path": {"train_micro_step_1shot_b1": train_launches[name]},
+            "launches_by_path": {"train_micro_step_1shot_b1": train_launches[name],
+                                 **{p: c[name] for p, c in train_cli_launches.items()}},
             "max_abs_err": max(r["max_abs_err"][e] for r in bwd_rows for e in errs),
             "ms": bmain[f"{kind}_ms"], "plain_ms": bmain["plain_ms"],
             "bound_ms": bmain[f"{kind}_bound_ms"], "bound_by": bmain[f"{kind}_bound_by"],
@@ -2581,7 +2983,7 @@ def kernel_record(rows, bwd_rows, norm_rows, fused_rows, down_rows, episode_laun
 
 
 PHASES = ("device,build,kernel,bwd,norm,fused,downsample,tiny,tiny_train,full,eval,cached,"
-          "serve,train")
+          "serve,train,train_cli")
 
 
 def main():
@@ -2620,6 +3022,7 @@ def main():
     cached_launches = phase_cached(card) if "cached" in phases else None
     serve_launches = phase_serve(card) if "serve" in phases else None
     train_launches = phase_train(card) if "train" in phases else None
+    train_cli_launches = phase_train_cli(card) if "train_cli" in phases else None
     RESULTS["seconds"] = time.time() - t_start
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
@@ -2628,7 +3031,7 @@ def main():
         fail(f"phases {sorted(phases)} ran; the kernel record needs all of {PHASES}")
     emit(kernel_record(rows, bwd_rows, norm_rows, fused_rows, down_rows, episode_launches,
                        train_launches, cached_launches, down_launches, eval_launches,
-                       serve_launches))
+                       serve_launches, train_cli_launches))
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
 

@@ -1,6 +1,13 @@
 """Weights for the port: diffusers checkpoints and JAX parameter trees.
 
-Port of `diffews_tpu/checkpoint.py` (loading side).  The port's modules
+Port of `diffews_tpu/checkpoint.py`: loaders, savers and the checkpoint
+surgery.  `.safetensors` files go through the port's own codec
+(`utils/safetensors_codec.py`), so neither reading nor writing needs the
+`safetensors` package; the savers write what the JAX package's
+`save_unet` / `save_vae` write (`checkpoint.py:160-216`): `config.json`
+and `diffusion_pytorch_model.safetensors` with the diffusers key names and
+torch layouts of `pytree_to_torch_state`, float32 as the state holds it.
+The port's modules
 carry the diffusers key names, so a diffusers directory loads with
 `load_state_dict(strict=True)` after two mechanical fixes the JAX loader
 also makes: the legacy VAE attention names (query/key/value/proj_attn ->
@@ -28,6 +35,7 @@ from diffews_tpu_torch.configs import (CLIPTextConfig, SchedulerConfig, UNetConf
 from diffews_tpu_torch.models.clip_text import CLIPTextModel
 from diffews_tpu_torch.models.unet import UNet2DConditionModel
 from diffews_tpu_torch.models.vae import AutoencoderKL
+from diffews_tpu_torch.utils import safetensors_codec
 from diffews_tpu_torch.utils.init import build_module
 
 WEIGHTS_SAFETENSORS = "diffusion_pytorch_model.safetensors"
@@ -87,21 +95,59 @@ def _load_torch_weights(model_dir: str, names: Tuple[str, ...]) -> Dict[str, tor
         path = os.path.join(model_dir, name)
         index = path + ".index.json"
         if name.endswith(".safetensors") and (os.path.exists(path) or os.path.exists(index)):
-            try:
-                from safetensors.torch import load_file
-            except ImportError as e:
-                raise ImportError(f"{path} needs the safetensors package") from e
             if os.path.exists(path):
-                return load_file(path)
+                return safetensors_codec.load_file(path)
             with open(index) as f:
                 shards = sorted(set(json.load(f)["weight_map"].values()))
             state: Dict[str, torch.Tensor] = {}
             for shard in shards:
-                state.update(load_file(os.path.join(model_dir, shard)))
+                state.update(safetensors_codec.load_file(os.path.join(model_dir, shard)))
             return state
         if os.path.exists(path):
             return torch.load(path, map_location="cpu", weights_only=True)
     raise FileNotFoundError(f"no weights file in {model_dir} (tried {names})")
+
+
+def _state_of(weights) -> Dict[str, torch.Tensor]:
+    """A module's state dict, or a name -> tensor map as given."""
+    return weights.state_dict() if isinstance(weights, torch.nn.Module) else dict(weights)
+
+
+def save_torch_weights(state, model_dir: str, name: str = WEIGHTS_SAFETENSORS) -> int:
+    """Write `state` (name -> tensor or array) as `model_dir/name`; returns
+    the bytes written.  A `.safetensors` name uses the codec (with
+    diffusers' `{"format": "pt"}` metadata), another `torch.save`."""
+    os.makedirs(model_dir, exist_ok=True)
+    path = os.path.join(model_dir, name)
+    if name.endswith(".safetensors"):
+        return safetensors_codec.save_file(state, path, metadata={"format": "pt"})
+    torch.save({k: v.detach().cpu().contiguous() for k, v in state.items()}, path)
+    return os.path.getsize(path)
+
+
+def _save_model(weights, cfg_dict: dict, model_dir: str) -> int:
+    os.makedirs(model_dir, exist_ok=True)
+    with open(os.path.join(model_dir, "config.json"), "w") as f:
+        json.dump(cfg_dict, f, indent=2)
+    return save_torch_weights(_state_of(weights), model_dir)
+
+
+def save_unet(weights, cfg: UNetConfig, model_dir: str) -> int:
+    """A diffusers-layout UNet directory that the reference, the JAX
+    package and the port read; `weights` is the module or its state dict
+    (name -> tensor).  Returns the weight file's bytes."""
+    return _save_model(weights, cfg.to_diffusers_dict(), model_dir)
+
+
+def save_vae(weights, cfg: VAEConfig, model_dir: str) -> int:
+    return _save_model(weights, cfg.to_diffusers_dict(), model_dir)
+
+
+def load_unet_state(model_dir: str) -> Dict[str, torch.Tensor]:
+    """The weights of a diffusers UNet directory by the port's names, on
+    the host, without building the module."""
+    return normalize_diffusers_keys(
+        _load_torch_weights(model_dir, (WEIGHTS_SAFETENSORS, WEIGHTS_BIN)))
 
 
 def _load_module(cls, cfg, state, device, dtype):
@@ -133,6 +179,45 @@ def load_text_encoder(model_dir: str, device="cpu",
         load_json_config(os.path.join(model_dir, "config.json")))
     state = _load_torch_weights(model_dir, (TEXT_SAFETENSORS, TEXT_BIN))
     return _load_module(CLIPTextModel, cfg, state, device, dtype), cfg
+
+
+def make_ref_conv_surgery(state: Dict[str, torch.Tensor],
+                          duplicate: int = 2) -> Dict[str, torch.Tensor]:
+    """Fabricate `conv_in_ref` from `conv_in` on a vanilla SD UNet state
+    dict (JAX `make_ref_conv_surgery`, `checkpoint.py:223-239`): the input
+    channels repeated `duplicate` times and divided by `duplicate`, so the
+    initial response to (rgb ‖ mask) is the original response to rgb.  JAX
+    tiles the HWIO kernel's I axis, which is axis 1 of the OIHW weight."""
+    w = state["conv_in.weight"]
+    out = dict(state)
+    out["conv_in_ref.weight"] = w.repeat(1, duplicate, 1, 1) / duplicate
+    out["conv_in_ref.bias"] = state["conv_in.bias"]
+    return out
+
+
+def surgery_checkpoint(src_ckpt: str, dst_ckpt: str):
+    """Clone a diffusers SD checkpoint, adding the 8-channel `conv_in_ref`
+    (JAX `surgery_checkpoint`, `checkpoint.py:242-267`): every other
+    subdirectory is copied as it is, the UNet is written in float32, as the
+    JAX package writes it, with `ref_in_channels = 2 · in_channels`."""
+    import dataclasses
+    import shutil
+
+    unet_dir = os.path.join(src_ckpt, "unet")
+    cfg = UNetConfig.from_diffusers_dict(load_json_config(os.path.join(unet_dir, "config.json")))
+    state = make_ref_conv_surgery({k: v.float() for k, v in load_unet_state(unet_dir).items()})
+    os.makedirs(dst_ckpt, exist_ok=True)
+    for sub in os.listdir(src_ckpt):
+        s, d = os.path.join(src_ckpt, sub), os.path.join(dst_ckpt, sub)
+        if sub == "unet" or not os.path.isdir(s):
+            continue
+        if not os.path.exists(d):
+            shutil.copytree(s, d)
+    cfg = dataclasses.replace(cfg, ref_in_channels=cfg.in_channels * 2)
+    save_unet(state, cfg, os.path.join(dst_ckpt, "unet"))
+    mi = os.path.join(src_ckpt, "model_index.json")
+    if os.path.exists(mi):
+        shutil.copy(mi, os.path.join(dst_ckpt, "model_index.json"))
 
 
 class PipelineBundle:

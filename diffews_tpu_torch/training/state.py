@@ -63,7 +63,11 @@ class TrainerConfig:
     lr_warmup_steps: int = 0
     lr_power: float = 1.0
     max_train_steps: int = 20000
+    # micro-batches per optimizer step (the batch's leading axis decides
+    # inside the step; the CLI sizes the batch from this)
+    gradient_accumulation_steps: int = 4
     train_timestep: int = 1
+    max_nshot: int = 1
     use_ema: bool = False
     compute_dtype: torch.dtype = torch.bfloat16
     # Adam first-moment storage dtype (bf16 halves the momentum footprint;
@@ -73,9 +77,19 @@ class TrainerConfig:
     remat: bool = True
     # apply_if_finite: skip non-finite steps; accept after this many in a row
     max_nonfinite_steps: int = 10
+    # LoRA (`training/lora.py`): 0 = full fine-tuning; rank > 0 trains
+    # low-rank adapters on the sites of `lora_targets` ("attn" | "attn+ff")
+    # with scale lora_alpha / rank (alpha None -> rank)
+    lora_rank: int = 0
+    lora_alpha: Optional[float] = None
+    lora_targets: str = "attn"
     # the attn-mask conditioning variant (support masks as attention key
     # biases; `conv_in_ref` unused, its gradient zero, and it still decays)
     attn_mask_variant: bool = False
+    # the reference's schedule quirk (`--reference_lr_quirk`): the loop it
+    # forked steps the LR scheduler once per micro-batch, so the schedule
+    # runs at schedule(step * k); 1 = the correct schedule
+    lr_steps_per_opt_step: int = 1
 
 
 @dataclasses.dataclass
@@ -87,8 +101,10 @@ class TrainState:
 
 
 def make_optimizer(cfg: TrainerConfig) -> Optimizer:
-    schedule = lr_lib.get_schedule(cfg.lr_scheduler, cfg.learning_rate, cfg.max_train_steps,
-                                   cfg.lr_warmup_steps, power=cfg.lr_power)
+    base = lr_lib.get_schedule(cfg.lr_scheduler, cfg.learning_rate, cfg.max_train_steps,
+                               cfg.lr_warmup_steps, power=cfg.lr_power)
+    k = cfg.lr_steps_per_opt_step
+    schedule = base if k == 1 else (lambda step: base(torch.as_tensor(step) * k))
     return _make_optimizer(schedule, b1=cfg.adam_beta1, b2=cfg.adam_beta2,
                            eps=cfg.adam_epsilon, weight_decay=cfg.adam_weight_decay,
                            max_grad_norm=cfg.max_grad_norm, mu_dtype=cfg.adam_mu_dtype,
@@ -257,14 +273,19 @@ def make_train_step(cfg: TrainerConfig, unet: nn.Module):
 
     Metrics (device tensors): loss, the pre-clip grad_norm, and
     apply_if_finite's notfinite_count and total_notfinite."""
-    tx = make_optimizer(cfg)
-    grad_fn = make_grad_fn(cfg, unet)
+    return step_from_grad_fn(cfg, make_grad_fn(cfg, unet))
 
-    def step_fn(state: TrainState, batch, rng, vae, text_embed) -> Tuple[TrainState, dict]:
+
+def step_from_grad_fn(cfg: TrainerConfig, grad_fn: GradFn):
+    """`step_fn(state, batch, rng, *extra) -> (state, metrics)` around
+    `grad_fn(state.params, *extra, micro, noise)`: the gradients averaged
+    over the micro-batches, the optimizer update, EMA and step count."""
+    tx = make_optimizer(cfg)
+
+    def step_fn(state: TrainState, batch, rng, *extra) -> Tuple[TrainState, dict]:
         gas = batch["query"].shape[0]
         noises = [rng] * gas if isinstance(rng, torch.Generator) else rng
-        loss, grads = accumulate_grads(grad_fn, state.params, (vae, text_embed), batch,
-                                       noises, gas)
+        loss, grads = accumulate_grads(grad_fn, state.params, extra, batch, noises, gas)
         gnorm = tx.update(grads, state.opt_state, state.params)
         del grads
         if state.ema is not None:

@@ -1,7 +1,8 @@
-"""The port stands alone: `diffews_tpu_torch/`, `chip_smoke.py` and the
-kernel A/B tools (`tools/cuda_*.py`) import neither `jax`, `optax` nor the
-JAX package, and the pipeline refuses to
-fall back to the CPU on a host without a CUDA device."""
+"""The port stands alone: `diffews_tpu_torch/`, `chip_smoke.py`, the
+kernel A/B tools (`tools/cuda_*.py`) and `tools/torch_train_capability.py`
+import neither `jax`, `flax`, `optax`, `safetensors` nor the JAX package,
+and the pipeline refuses to fall back to the CPU on a host without a CUDA
+device."""
 
 import ast
 import os
@@ -19,14 +20,15 @@ ROOT = Path(__file__).resolve().parents[1]
 
 def _port_sources():
     files = (sorted((ROOT / "diffews_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-             + sorted((ROOT / "tools").glob("cuda_*.py")))
+             + sorted((ROOT / "tools").glob("cuda_*.py"))
+             + [ROOT / "tools" / "torch_train_capability.py"])
     assert len(files) > 10
     return files
 
 
 def _forbidden(name: str) -> bool:
     return any(name == top or name.startswith(top + ".")
-               for top in ("jax", "optax", "diffews_tpu"))
+               for top in ("jax", "flax", "optax", "safetensors", "diffews_tpu"))
 
 
 def test_no_jax_or_reference_imports_in_port_sources():
@@ -53,8 +55,10 @@ def test_importing_the_port_loads_no_jax():
             "import diffews_tpu_torch.evaluation, diffews_tpu_torch.native\n"
             "import diffews_tpu_torch.serving, diffews_tpu_torch.cli.serve\n"
             "import diffews_tpu_torch.cli.export\n"
+            "import diffews_tpu_torch.training.lora, diffews_tpu_torch.training.checkpoints\n"
+            "import diffews_tpu_torch.cli.train, diffews_tpu_torch.cli.surgery\n"
             "bad = [m for m in sys.modules if any(m == t or m.startswith(t + '.')\n"
-            "       for t in ('jax', 'optax', 'diffews_tpu'))]\n"
+            "       for t in ('jax', 'flax', 'optax', 'safetensors', 'diffews_tpu'))]\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
