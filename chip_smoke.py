@@ -129,13 +129,35 @@ Phases, each of which fails the run (non-zero exit) on any error:
      (seconds, bytes), 3 steps with checkpoints at 2 and 3 and validation
      at 2 (each step 65 flash / 32 dq / 32 dkv / 109 + 109 GroupNorm, each
      validation episode 34 / 94 + 94), then checkpoint-2 resumed in a fresh
-     directory under `cudnn.deterministic`: checkpoint-3 and the step-3
-     loss bit for bit equal; step walls, snapshot and write seconds and
-     bytes, load and resume seconds, peak memory; (c) LoRA rank 8 on the
+     directory under the CLI's own `cudnn.deterministic`: checkpoint-3 and
+     the step-3 loss bit for bit equal, and the process's setting put back
+     after each run; 2 steps without the setting (its cost in step wall); step walls, snapshot and write seconds and bytes,
+     load and resume seconds, peak memory; (c) LoRA rank 8 on the
      attention projections, 2 steps: the same launches, `unet/` float32
      and different from the base exactly at the adapted sites; (d)
      `tools/torch_train_capability.py` at the CI-bound 60 steps / 200 VAE
-     steps / 16 episodes under its pass rule.
+     steps / 16 episodes under its pass rule;
+ 16. multi: multi-device serving and training (`diffews_tpu_torch.parallel`)
+     on the one card, each group of ranks started by `torchrun` (any
+     rank's failure fails the run): (a) 2 ranks over gloo (its all_reduce
+     takes CUDA tensors; NCCL refuses two ranks on one device), a
+     ("shots",) mesh, the full-width 2-shot batch-1 512px episode: in f32
+     (TF32 off) the x0 latent within 2e-3 of max|single-process| and the
+     uint8 mask within one count on < 1% of pixels; in bf16 both ranks'
+     masks equal bit for bit, a repeat bit-identical, a 1-valid + 3-padded
+     episode (rank 1 holds padded shots only) finite and unchanged by the
+     padded shots' content, per rank the single-process episode's
+     launches and 16 log-sum-exp merges, the sharded wall beside the
+     single-process one; (b) two tiny f32 data-parallel steps at gas 2
+     over gloo against the same steps on the whole batch in one process
+     (phase tiny_train's rules), and the full-width bf16 train CLI with
+     `--num_data_shards 2` (b1 a rank; the smoke builds the CLI's data
+     mesh on gloo), 2 steps: launches, losses, step walls, each rank's
+     peak memory; (c) NCCL at world size 1, in a fresh process: the eval
+     CLI run plainly, then with `--num_data_shards 1`, then plainly again
+     (equal metrics, warm walls); then the train CLI with
+     `--num_data_shards 1 --fsdp` (launches, step walls beside the plain
+     CLI's).
 
 Every line before the last is plain text or JSON; the last line is
 `{"ok": true, "device": {...}}`.  Detailed results also go to
@@ -2650,7 +2672,9 @@ def _step_wall(report, step):
 
 
 def _train_cli_full(tmp, data, card, disk):
-    """(b) full width, full fine-tuning, and (c) LoRA, through the CLI."""
+    """(b) full width, full fine-tuning (also without the CLI's
+    `cudnn.deterministic`, for its cost), and (c) LoRA, through the CLI.
+    The checkpoint stays in `tmp/full_ckpt` for phase multi."""
     import shutil
 
     import torch
@@ -2717,8 +2741,12 @@ def _train_cli_full(tmp, data, card, disk):
     straight_dir = os.path.join(tmp, "full_straight")
     resumed_dir = os.path.join(tmp, "full_resumed")
     common = ("--max_train_steps", "3", "--checkpointing_steps", "2")
+    check(not torch.backends.cudnn.deterministic, "train_cli: cudnn.deterministic set "
+          "before the CLI ran")
     straight = run("make_train_step", TT, argv(straight_dir, *common, "--validation_steps",
                                               "2", "--validation_episodes", "2"))
+    check(not torch.backends.cudnn.deterministic,
+          "train_cli: the CLI left cudnn.deterministic set after it returned")
     disk.append(_du(tmp))
     for i, s in enumerate(straight["steps"]):
         check(s["launches"] == TRAIN_CLI_LAUNCHES,
@@ -2749,6 +2777,18 @@ def _train_cli_full(tmp, data, card, disk):
     del got, got_mu, want_mu
     shutil.rmtree(straight_dir)
     shutil.rmtree(resumed_dir)
+    # 2 of the same steps with cuDNN's default (nondeterministic) algorithms:
+    # the cost of the CLI's `cudnn.deterministic` in step wall
+    nondet_dir = os.path.join(tmp, "full_nondet")
+    set_det, seen = TT._deterministic_cudnn, []
+    TT._deterministic_cudnn = lambda: seen.append(torch.backends.cudnn.deterministic)
+    try:
+        nondet = run("make_train_step", TT, argv(nondet_dir, "--max_train_steps", "2",
+                                                 "--checkpointing_steps", "2"))
+    finally:
+        TT._deterministic_cudnn = set_det
+    check(seen == [False], f"the run without the setting saw {seen}")
+    shutil.rmtree(nondet_dir)
     keep = ("load_s", "resume_s", "trainable_params", "saves", "wall_s", "peak_mem_gb")
     res["full"] = {
         "straight": {k: straight.get(k) for k in keep},
@@ -2761,6 +2801,8 @@ def _train_cli_full(tmp, data, card, disk):
         "cli_step2_wall_s": _step_wall(straight, 2),
         "cli_resumed_step3_wall_s": resumed["log"][0]["wall_s"],
         "step_fn_synced_s": [s["synced_s"] for s in straight["steps"]],
+        "cli_step2_wall_s_without_deterministic": _step_wall(nondet, 2),
+        "step_fn_synced_s_without_deterministic": [s["synced_s"] for s in nondet["steps"]],
         "card": card}
     emit({"phase": "train_cli_full_1shot_b1_512px_bf16", **res["full"]})
 
@@ -2794,7 +2836,6 @@ def _train_cli_full(tmp, data, card, disk):
         "peak_mem_gb_full": res["full"]["straight"]["peak_mem_gb"],
         "saves": lora["saves"], "unet_f32_differs_at_adapted_sites_only": True, "card": card}
     emit({"phase": "train_cli_lora8_1shot_b1_512px_bf16", **res["lora"]})
-    shutil.rmtree(ckpt)
     launches = {"train_cli_micro_step_1shot_b1": res["full"]["launches_per_micro_step"],
                 "train_cli_lora_micro_step_1shot_b1": res["lora"]["launches_per_micro_step"],
                 "train_cli_validation_episode_1shot_b1": dict(
@@ -2821,36 +2862,27 @@ def _train_cli_capability(tmp, card):
     return rep
 
 
-def phase_train_cli(card):
+def phase_train_cli(card, work):
     """The training CLI on the card: (a) tiny card vs CPU, (b) full width
-    full fine-tuning with a bit-exact resume, (c) full width LoRA, (d) the
-    capability run."""
-    import tempfile
+    full fine-tuning with a bit-exact resume under the CLI's own cuDNN
+    setting, (c) full width LoRA, (d) the capability run.  Leaves the
+    full-width checkpoint and the data tree in `work` for phase multi."""
+    import shutil
 
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     from helpers.synthetic_data import make_coco
 
-    import torch
-
     t0 = time.time()
     res, disk = {}, []
-    # bit-exact resume on the card needs deterministic cuDNN algorithms (a
-    # process setting, not a CLI flag)
-    det = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    with tempfile.TemporaryDirectory() as tmp:
-        import shutil
-
-        res["disk_free_gb_at_start"] = shutil.disk_usage(tmp).free / 1e9
-        data = make_coco(os.path.join(tmp, "data"))
-        res["tiny"] = _train_cli_tiny(tmp, data)
-        emit({"phase": "train_cli_tiny", "dtype": "float32", "tf32": False, **res["tiny"]})
-        full, launches = _train_cli_full(tmp, data, card, disk)
-        res.update(full)
-        res["capability"] = _train_cli_capability(tmp, card)
-        emit({"phase": "train_cli_capability",
-              **{k: v for k, v in res["capability"].items() if k != "workdir"}})
-    torch.backends.cudnn.deterministic = det
+    res["disk_free_gb_at_start"] = shutil.disk_usage(work).free / 1e9
+    data = make_coco(os.path.join(work, "data"))
+    res["tiny"] = _train_cli_tiny(work, data)
+    emit({"phase": "train_cli_tiny", "dtype": "float32", "tf32": False, **res["tiny"]})
+    full, launches = _train_cli_full(work, data, card, disk)
+    res.update(full)
+    res["capability"] = _train_cli_capability(work, card)
+    emit({"phase": "train_cli_capability",
+          **{k: v for k, v in res["capability"].items() if k != "workdir"}})
     res["seconds"] = time.time() - t0
     res["peak_disk_gb"] = max(disk) / 1e9
     emit({"phase": "train_cli", "seconds": res["seconds"], "peak_disk_gb": res["peak_disk_gb"],
@@ -2859,9 +2891,448 @@ def phase_train_cli(card):
     return launches
 
 
+MULTI_RANKS = 2  # two ranks on the one card (gloo) for (a) and (b)
+SHOT_TOL = 2e-3  # sharded x0 latent vs single-process, relative to max|single| (f32)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _launch(cmd, log, timeout, what):
+    """Run `cmd` in its own session, output to `log`; returns the wall.
+    Fails the run on a non-zero exit or on the timeout, after which the
+    whole session (every process it started) is killed."""
+    import signal
+
+    env = dict(os.environ, OMP_NUM_THREADS="2",
+               PYTHONPATH=os.pathsep.join([ROOT, os.path.join(ROOT, "tests")]))
+    t0 = time.time()
+    with open(log, "w") as f:
+        p = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT, env=env, cwd=ROOT,
+                             start_new_session=True)
+        try:
+            rc = p.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            os.killpg(p.pid, signal.SIGKILL)
+            p.wait()
+            rc = None
+    wall = time.time() - t0
+    if rc != 0:
+        with open(log) as f:
+            tail = f.read()[-6000:]
+        fail(f"{what} {'timed out' if rc is None else f'exited {rc}'}:\n{tail}")
+    return wall
+
+
+def _torchrun(nproc, target, log, timeout):
+    """`torchrun --nproc_per_node nproc <target>` on this node (a static
+    rendezvous on a free local port); any rank's failure (torchrun then
+    stops the others) or the timeout fails the run."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
+           "--nproc_per_node", str(nproc), "--master_addr", "127.0.0.1",
+           "--master_port", str(_free_port()), *target]
+    return _launch(cmd, log, timeout, f"torchrun {' '.join(target[1:3])} ({nproc} ranks)")
+
+
+def _rank_results(out_dir, n):
+    out = []
+    for r in range(n):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def _rank_shot_serving(rank, out_dir):
+    """(a), on each of the two ranks of a gloo ("shots",) mesh on the one
+    card: the 2-shot batch-1 512px episode in f32 (TF32 off) and bf16, the
+    1-valid + 3-padded episode in bf16; rank 0 also runs the single-process
+    `predict` of the same episodes while rank 1 waits."""
+    import torch
+    import torch.distributed as dist
+    from diffews_tpu_torch.ops.attention import shot_parallel_fused_kv_attention as spa
+    from diffews_tpu_torch.parallel import mesh as M
+    from diffews_tpu_torch.pipeline import DiffewsPipeline
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = M.make_shot_mesh("cpu", MULTI_RANKS)
+    bundle = _full_bundle()
+    q, sup, m = _episode(1, 2, 512, seed=61)
+    res, x0s = {}, []
+
+    def pipeline(dtype, shot_mesh):
+        pipe = DiffewsPipeline(bundle, device="cuda", compute_dtype=dtype, shot_mesh=shot_mesh)
+        decode = pipe._decode_seg
+
+        def recording(x0):
+            x0s.append(x0.float().cpu())
+            return decode(x0)
+
+        pipe._decode_seg = recording
+        return pipe
+
+    def timed(pipe, *args, **kw):
+        pipe.predict(*args, **kw)  # warm
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out = pipe.predict(*args, **kw)
+            walls.append(time.perf_counter() - t0)
+        return out, statistics.median(walls)
+
+    # f32: sharded against single-process
+    sharded = pipeline(torch.float32, mesh)
+    out = sharded.predict(q, sup, m, r_threshold=0.25)
+    x0_sh = x0s[-1]
+    dist.barrier()
+    if rank == 0:
+        single = pipeline(torch.float32, None).predict(q, sup, m, r_threshold=0.25)
+        x0_one = x0s[-1]
+        err = float((x0_sh - x0_one).abs().max())
+        scale = float(x0_one.abs().max())
+        check(bool(torch.isfinite(x0_sh).all()) and err <= SHOT_TOL * scale,
+              f"multi (a) f32: sharded x0 off by {err} (allowed {SHOT_TOL}·{scale})")
+        mx, frac = _uint8_close(out.seg_colored, single.seg_colored, "multi (a) f32 mask")
+        res["f32"] = {"x0_max_abs_err": err, "x0_max_abs": scale, "mask_max_uint8_diff": mx,
+                      "mask_frac_differ": frac}
+    dist.barrier()
+    del sharded
+    x0s.clear()
+
+    # bf16: the sharded episode (its launches counted), a repeat, the walls
+    sharded = pipeline(torch.bfloat16, mesh)
+    sharded.predict(q, sup, m, r_threshold=0.25)
+    torch.cuda.synchronize()
+    _zero_counts()
+    spa.merges = 0
+    first = sharded.predict(q, sup, m, r_threshold=0.25)
+    torch.cuda.synchronize()
+    res["launches_per_episode"] = dict(_launch_counts(), lse_merges=spa.merges)
+    again, res["sharded_wall_s"] = timed(sharded, q, sup, m, r_threshold=0.25)
+    check(np.array_equal(first.seg_colored, again.seg_colored),
+          f"multi (a) bf16: rank {rank}'s repeat is not bit-identical")
+    np.save(os.path.join(out_dir, f"rank{rank}_bf16_seg.npy"), first.seg_colored)
+    # 1 valid + 3 padded shots: rank 1 holds two padded shots only
+    q4, sup4, m4 = _episode(1, 4, 512, seed=62)
+    sm = np.array([[True, False, False, False]])
+    n0 = len(x0s)
+    pad = sharded.predict(q4, sup4, m4, shot_mask=sm, r_threshold=0.25)
+    sup_o, m_o = sup4.copy(), m4.copy()
+    sup_o[:, 1:], m_o[:, 1:] = 255 - sup4[:, 1:], 1 - m4[:, 1:]
+    other = sharded.predict(q4, sup_o, m_o, shot_mask=sm, r_threshold=0.25)
+    check(all(bool(torch.isfinite(x).all()) for x in x0s[n0:]),
+          "multi (a) bf16 padded episode: a NaN or inf in x0")
+    check(np.array_equal(pad.seg_colored, other.seg_colored),
+          f"multi (a) bf16: the padded shots' content changed rank {rank}'s prediction")
+    res["padded_invariant"] = True
+    dist.barrier()
+    if rank == 0:
+        single = pipeline(torch.bfloat16, None)
+        single.predict(q, sup, m, r_threshold=0.25)
+        torch.cuda.synchronize()
+        _zero_counts()
+        one = single.predict(q, sup, m, r_threshold=0.25)
+        torch.cuda.synchronize()
+        res["single_launches_per_episode"] = _launch_counts()
+        _, res["single_wall_s"] = timed(single, q, sup, m, r_threshold=0.25)
+        mx, frac = _diff_stats(first.seg_colored, one.seg_colored)
+        res["bf16_vs_single"] = {"max_uint8_diff": mx, "frac_differ": frac}
+    dist.barrier()
+    return res
+
+
+def _rank_dp_tiny(rank):
+    """(b), on each rank of a gloo ("data",) mesh on the one card: two tiny
+    f32 steps at gas 2 on this rank's row of a batch of 2 (one padded shot
+    a row); rank 0 then runs the same steps unsharded and holds the two
+    under phase tiny_train's rules."""
+    import torch
+    import torch.distributed as dist
+    from diffews_tpu_torch.cli.train import _rank_noise
+    from diffews_tpu_torch.configs import UNetConfig, VAEConfig
+    from diffews_tpu_torch.models.unet import UNet2DConditionModel
+    from diffews_tpu_torch.models.vae import AutoencoderKL
+    from diffews_tpu_torch.parallel import mesh as M
+    from diffews_tpu_torch.training.state import TrainerConfig, init_state, make_train_step
+    from diffews_tpu_torch.utils.init import build_module
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = M.make_mesh("cpu", MULTI_RANKS)
+    gas, b, n, px, lr = 2, 2, 2, 32, 1e-3
+    cfg = TrainerConfig(compute_dtype=torch.float32, adam_mu_dtype=torch.float32,
+                        learning_rate=lr, max_train_steps=10)
+    text = torch.tensor(np.random.default_rng(3).normal(
+        0, 0.5, (1, 77, UNetConfig.tiny().cross_attention_dim)), dtype=torch.float32,
+        device="cuda")
+    noise = np.random.default_rng(4).normal(
+        size=(2, gas, _n_images(b, n, False), px // 2, px // 2, 4)).astype(np.float32)
+
+    def run(data_mesh):
+        unet = build_module(UNet2DConditionModel, UNetConfig.tiny(), seed=0).to(
+            "cuda", memory_format=torch.channels_last)
+        vae = build_module(AutoencoderKL, VAEConfig.tiny(), seed=1).to(
+            "cuda", memory_format=torch.channels_last).requires_grad_(False)
+        state = init_state(cfg, dict(unet.named_parameters()), device="cuda")
+        group = None if data_mesh is None else M.axis_group(data_mesh, "data")
+        step = make_train_step(cfg, unet, data_group=group)
+        metrics, mu_hist = [], []
+        for i in range(2):
+            batch = _train_batch(gas, b, n, px, seed=10 + i, padded=1, device="cuda")
+            nz = torch.from_numpy(noise[i])
+            if data_mesh is not None:
+                batch = M.put_global_batch(batch, data_mesh)
+                nz = _rank_noise(nz, b, n, M.rows(b, MULTI_RANKS, rank), False)
+            state, mt = step(state, batch, nz.to("cuda"), vae, text)
+            metrics.append({k: float(v) for k, v in mt.items()})
+            mu_hist.append({k: v.detach().cpu().clone() for k, v in state.opt_state.mu.items()})
+        return metrics, state, mu_hist
+
+    dp, dp_state, _ = run(mesh)
+    res = {"loss": [x["loss"] for x in dp], "grad_norm": [x["grad_norm"] for x in dp]}
+    dist.barrier()
+    if rank == 0:
+        one, one_state, mu_hist = run(None)
+        what = "multi (b) tiny DP vs single-process"
+        for i, (a, c) in enumerate(zip(dp, one)):
+            check(abs(a["loss"] - c["loss"]) <= 1e-5 * abs(c["loss"]),
+                  f"{what}: step {i} loss {a['loss']} vs {c['loss']}")
+            check(abs(a["grad_norm"] - c["grad_norm"]) <= 1e-4 * abs(c["grad_norm"]),
+                  f"{what}: step {i} grad norm {a['grad_norm']} vs {c['grad_norm']}")
+        res.update(_params_close(dp_state.params, one_state.params, mu_hist, lr, 2, what),
+                   loss_single=[x["loss"] for x in one])
+    dist.barrier()
+    return res
+
+
+def _rank_serve_train(out_dir):
+    import torch.distributed as dist
+    from diffews_tpu_torch.parallel import mesh as M
+
+    # gloo: NCCL refuses two ranks on one device; gloo's all_reduce takes
+    # CUDA tensors, which is all the shot merge and the gradient mean need
+    M.maybe_initialize_distributed(device_type="cpu")
+    rank = M.rank()
+    res = {"rank": rank, "backend": dist.get_backend()}
+    res["serve"] = _rank_shot_serving(rank, out_dir)
+    res["train"] = _rank_dp_tiny(rank)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+
+
+_TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE", "GROUP_RANK",
+                 "ROLE_RANK", "ROLE_WORLD_SIZE", "GROUP_WORLD_SIZE", "MASTER_ADDR",
+                 "MASTER_PORT", "TORCHELASTIC_RUN_ID")
+
+
+def _run_cli(kind, argv) -> dict:
+    """`main(argv)` of the train CLI (its steps counted by `_CountedSteps`;
+    "train_gloo": its data mesh built on gloo, which lets two ranks share
+    the one card where NCCL refuses them) or the eval CLI ("eval";
+    "eval_plain": with torchrun's environment hidden, so that it runs as
+    one plain process), its wall and the peak memory."""
+    import torch
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    hidden = {k: os.environ.pop(k) for k in _TORCHRUN_ENV
+              if kind == "eval_plain" and k in os.environ}
+    t0 = time.time()
+    try:
+        if kind.startswith("train"):
+            from diffews_tpu_torch.cli import train as TT
+
+            counted, setup = _CountedSteps(TT.make_train_step), TT._setup_mesh
+            TT.make_train_step = counted
+            if kind == "train_gloo":
+                TT._setup_mesh = lambda args, device_type: setup(args, "cpu")
+            try:
+                report = TT.main(argv)
+            finally:
+                TT.make_train_step, TT._setup_mesh = counted.make, setup
+            res = {"log": report["log"], "saves": report["saves"],
+                   "load_s": report.get("load_s"), "steps": counted.calls}
+        else:
+            from diffews_tpu_torch.cli import evaluate as TE
+
+            res = {"metrics": list(TE.main(argv))}
+    finally:
+        os.environ.update(hidden)
+    res.update(wall_s=time.time() - t0, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return res
+
+
+def rank_main(argv):
+    """One rank of phase multi, started by `torchrun`:
+    `chip_smoke.py --rank-task serve_train <out_dir>`, or
+    `chip_smoke.py --rank-task cli <out_dir> -- <kind> <argv> [-- <kind> <argv> ...]`
+    (CLI runs in turn in this process, kind train / train_gloo / eval /
+    eval_plain)."""
+    task, out_dir = argv[0], argv[1]
+    sys.path.insert(0, ROOT)
+    if task == "serve_train":
+        return _rank_serve_train(out_dir)
+    rank = int(os.environ["RANK"])
+    runs, cur = [], None
+    for tok in argv[2:]:
+        if tok == "--":
+            cur = None
+        elif cur is None:
+            cur = (tok, [])
+            runs.append(cur)
+        else:
+            cur[1].append(tok)
+    res = [dict(_run_cli(kind, cli_argv), kind=kind, rank=rank) for kind, cli_argv in runs]
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def _multi_serve_train(tmp):
+    """(a) shot-parallel serving and (b)'s tiny DP steps: 2 ranks, gloo."""
+    out = os.path.join(tmp, "serve_train")
+    os.makedirs(out)
+    wall = _torchrun(MULTI_RANKS, [os.path.join(ROOT, "chip_smoke.py"), "--rank-task",
+                                   "serve_train", out], os.path.join(tmp, "serve_train.log"),
+                     timeout=600)
+    ranks = _rank_results(out, MULTI_RANKS)
+    segs = [np.load(os.path.join(out, f"rank{r}_bf16_seg.npy")) for r in range(MULTI_RANKS)]
+    check(np.array_equal(segs[0], segs[1]),
+          "multi (a) bf16: the two ranks' predictions differ")
+    s0 = ranks[0]["serve"]
+    for r in ranks:
+        got, want = r["serve"]["launches_per_episode"], s0["single_launches_per_episode"]
+        check(got["lse_merges"] == CACHE_SITES,
+              f"multi (a): rank {r['rank']} merged {got['lse_merges']} sites, expected "
+              f"{CACHE_SITES}")
+        check({k: v for k, v in got.items() if k != "lse_merges"} == want,
+              f"multi (a): rank {r['rank']} launched {got}, the single-process episode "
+              f"{want}")
+        check(r["train"]["loss"] == ranks[0]["train"]["loss"],
+              "multi (b): the ranks' DP losses differ")
+    return {"wall_s": wall, "backend": ranks[0]["backend"],
+            "serve": [r["serve"] for r in ranks], "train_tiny": [r["train"] for r in ranks]}
+
+
+def _multi_cli(tmp, name, nproc, runs, timeout):
+    """CLI runs [(kind, argv), ...] in turn in each of `nproc` torchrun
+    ranks: (torchrun wall, each rank's list of results)."""
+    out = os.path.join(tmp, name)
+    os.makedirs(out)
+    target = [os.path.join(ROOT, "chip_smoke.py"), "--rank-task", "cli", out]
+    for kind, argv in runs:
+        target += ["--", kind, *argv]
+    wall = _torchrun(nproc, target, os.path.join(tmp, f"{name}.log"), timeout)
+    return wall, _rank_results(out, nproc)
+
+
+def phase_multi(card, work):
+    """Multi-device serving and training on the one card: (a) shot-parallel
+    serving and (b) data-parallel training on 2 ranks over gloo, (c) the
+    train CLI (FSDP) and the eval CLI at world size 1 over NCCL."""
+    import shutil
+
+    t0 = time.time()
+    ckpt, data = os.path.join(work, "full_ckpt"), os.path.join(work, "data")
+    tmp = os.path.join(work, "multi")
+    os.makedirs(tmp)
+    res = _multi_serve_train(tmp)
+    emit({"phase": "multi_shot_parallel_2shot_b1_512px", "ranks": MULTI_RANKS,
+          "backend": res["backend"], "card": card,
+          **{k: v for k, v in res["serve"][0].items()},
+          "rank1": {k: res["serve"][1][k] for k in ("launches_per_episode", "sharded_wall_s")}})
+    emit({"phase": "multi_dp_tiny_f32", "ranks": MULTI_RANKS, **res["train_tiny"][0]})
+
+    def train_argv(out, *extra):
+        return ["--pretrained_model_name_or_path", ckpt, "--datapath", data,
+                "--benchmark", "coco", "--fold", "0", "--nshot", "1", "--resolution", "512",
+                "--gradient_accumulation_steps", "1", "--logging_steps", "1", "--seed", "0",
+                "--output_dir", out, "--device", "cuda", "--max_train_steps", "2",
+                "--checkpointing_steps", "100", *extra]
+
+    def steps_summary(runs):
+        """Two CLI steps (the second the steady one) of each rank's run."""
+        r0 = runs[0]
+        for r in runs:
+            for i, st in enumerate(r["steps"]):
+                check(st["launches"] == TRAIN_CLI_LAUNCHES,
+                      f"multi CLI rank {r['rank']} step {i + 1} launched {st['launches']}")
+        losses = [x["loss"] for x in r0["log"]]
+        check(len(losses) == 2 and all(np.isfinite(losses)), f"multi CLI losses {losses}")
+        walls = {x["step"]: x["wall_s"] for x in r0["log"]}
+        return {"losses": losses, "cli_step2_wall_s": walls[2] - walls[1],
+                "step_fn_synced_s": [[st["synced_s"] for st in r["steps"]] for r in runs],
+                "peak_mem_gb": [r["peak_mem_gb"] for r in runs],
+                "launches_per_micro_step": r0["steps"][0]["launches"],
+                "main_wall_s": [r["wall_s"] for r in runs], "load_s": r0["load_s"]}
+
+    # (b) the full-width bf16 CLI, data-parallel over 2 ranks (gloo), b1 a rank
+    out = os.path.join(tmp, "dp_full")
+    wall, ranks = _multi_cli(tmp, "dp_cli", MULTI_RANKS, [("train_gloo", train_argv(
+        out, "--train_batch_size", "2", "--num_data_shards", "2"))], timeout=400)
+    res["dp_full"] = dict(steps_summary([r[0] for r in ranks]), torchrun_wall_s=wall,
+                          card=card, ranks=MULTI_RANKS, backend="gloo")
+    shutil.rmtree(out)
+    emit({"phase": "multi_dp_cli_full_1shot_b1_per_rank_512px_bf16", **res["dp_full"]})
+
+    # (c) world size 1 over NCCL, in one fresh process: the eval CLI
+    # plainly (torchrun's environment hidden) first, so that nothing run
+    # before it in the process sets its numerics, then with
+    # --num_data_shards 1 (a data mesh over the process group), then plainly
+    # again (a warm wall beside the NCCL run's); then the train CLI under
+    # --fsdp
+    out = os.path.join(tmp, "fsdp_full")
+    eval_argv = ["--checkpoint", ckpt, "--datapath", data, "--benchmark", "coco", "--fold",
+                 "0", "--nshot", "1", "--threshold", "0", "--r_threshold", "0.25",
+                 "--img-size", "512", "--bsz", "4", "--max_episodes", "4", "--half_precision",
+                 "--device", "cuda"]
+    runs = [(kind, eval_argv + ["--log-root", os.path.join(tmp, f"eval{i}"), *extra])
+            for i, (kind, extra) in enumerate((("eval_plain", ()),
+                                               ("eval", ("--num_data_shards", "1")),
+                                               ("eval_plain", ())))]
+    runs.append(("train", train_argv(out, "--train_batch_size", "1", "--num_data_shards", "1",
+                                     "--fsdp")))
+    wall, ranks = _multi_cli(tmp, "nccl_cli", 1, runs, timeout=400)
+    plain, nccl, plain_warm, train = ranks[0]
+    single = RESULTS.get("train_cli", {}).get("full", {})
+    res["fsdp_full_world1"] = dict(
+        steps_summary([train]), torchrun_wall_s=wall, card=card, backend="nccl",
+        plain_cli_step2_wall_s=single.get("cli_step2_wall_s"),
+        plain_cli_step2_wall_s_without_deterministic=single.get(
+            "cli_step2_wall_s_without_deterministic"))
+    shutil.rmtree(out)
+    emit({"phase": "multi_fsdp_cli_world1_full_1shot_b1_512px_bf16", **res["fsdp_full_world1"]})
+    check(nccl["metrics"] == plain["metrics"] == plain_warm["metrics"],
+          f"multi (c) eval CLI over NCCL {nccl['metrics']} vs plain {plain['metrics']}, "
+          f"{plain_warm['metrics']}")
+    res["eval_world1"] = {"metrics": plain["metrics"], "main_wall_s": nccl["wall_s"],
+                          "plain_main_wall_s": plain_warm["wall_s"],
+                          "plain_first_in_process_main_wall_s": plain["wall_s"],
+                          "peak_mem_gb": nccl["peak_mem_gb"], "backend": "nccl",
+                          "batches": 4, "bsz": 4, "card": card,
+                          "order": "plain (first in its process), over NCCL, plain "
+                                   "again, then the FSDP train CLI, in one process"}
+    emit({"phase": "multi_eval_cli_world1_1shot_b4_512px_bf16", **res["eval_world1"]})
+    shutil.rmtree(tmp)
+    res["seconds"] = time.time() - t0
+    emit({"phase": "multi", "seconds": res["seconds"]})
+    RESULTS["multi"] = res
+    s = res["serve"][0]
+    return {"shot_parallel_episode_2shot_b1_per_rank": s["launches_per_episode"],
+            "dp_cli_micro_step_1shot_b1_per_rank": res["dp_full"]["launches_per_micro_step"],
+            "fsdp_cli_world1_micro_step_1shot_b1":
+                res["fsdp_full_world1"]["launches_per_micro_step"]}
+
+
 def kernel_record(rows, bwd_rows, norm_rows, fused_rows, down_rows, episode_launches,
                   train_launches, cached_launches, down_launches, eval_launches,
-                  serve_launches, train_cli_launches):
+                  serve_launches, train_cli_launches, multi_launches):
     """One entry per kernel.  `launches` is the count on the path of the
     slice that ported it (the training micro-step for the flash kernels,
     the default episode for the GroupNorm kernels, the `vae_impl="fused"`
@@ -2878,7 +3349,8 @@ def kernel_record(rows, bwd_rows, norm_rows, fused_rows, down_rows, episode_laun
     dmain = [r for r in down_rows
              if tuple(r["shape"]) == DOWN_MAIN_SHAPE and r["dtype"] == "bfloat16"][0]
     paths = dict(episode_launches, **cached_launches, **eval_launches, **serve_launches,
-                 **train_cli_launches, train_micro_step_1shot_b1=train_launches,
+                 **train_cli_launches, **multi_launches,
+                 train_micro_step_1shot_b1=train_launches,
                  downsample_conv2x_encoder_inputs_b12=down_launches)
     by_path = lambda key: {p: c[key] for p, c in paths.items()}
     src = "diffews_tpu_torch/ops/csrc/"
@@ -2902,7 +3374,9 @@ def kernel_record(rows, bwd_rows, norm_rows, fused_rows, down_rows, episode_laun
             "replaces": f"diffews_tpu/ops/flash_attention.py:{line}",
             "launches": train_launches[name],
             "launches_by_path": {"train_micro_step_1shot_b1": train_launches[name],
-                                 **{p: c[name] for p, c in train_cli_launches.items()}},
+                                 **{p: c[name] for p, c in train_cli_launches.items()},
+                                 **{p: c[name] for p, c in multi_launches.items()
+                                    if name in c}},
             "max_abs_err": max(r["max_abs_err"][e] for r in bwd_rows for e in errs),
             "ms": bmain[f"{kind}_ms"], "plain_ms": bmain["plain_ms"],
             "bound_ms": bmain[f"{kind}_bound_ms"], "bound_by": bmain[f"{kind}_bound_by"],
@@ -2983,10 +3457,12 @@ def kernel_record(rows, bwd_rows, norm_rows, fused_rows, down_rows, episode_laun
 
 
 PHASES = ("device,build,kernel,bwd,norm,fused,downsample,tiny,tiny_train,full,eval,cached,"
-          "serve,train,train_cli")
+          "serve,train,train_cli,multi")
 
 
 def main():
+    if sys.argv[1:2] == ["--rank-task"]:
+        return rank_main(sys.argv[2:])
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=PHASES,
                     help="comma-separated subset of the phases (all by default)")
@@ -3022,7 +3498,17 @@ def main():
     cached_launches = phase_cached(card) if "cached" in phases else None
     serve_launches = phase_serve(card) if "serve" in phases else None
     train_launches = phase_train(card) if "train" in phases else None
-    train_cli_launches = phase_train_cli(card) if "train_cli" in phases else None
+    import shutil
+    import tempfile
+
+    # phase train_cli leaves its full-width checkpoint and data for phase multi
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        train_cli_launches = phase_train_cli(card, work) if "train_cli" in phases else None
+        multi_launches = (phase_multi(card, work)
+                          if {"train_cli", "multi"} <= phases else None)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     RESULTS["seconds"] = time.time() - t_start
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
@@ -3031,7 +3517,7 @@ def main():
         fail(f"phases {sorted(phases)} ran; the kernel record needs all of {PHASES}")
     emit(kernel_record(rows, bwd_rows, norm_rows, fused_rows, down_rows, episode_launches,
                        train_launches, cached_launches, down_launches, eval_launches,
-                       serve_launches, train_cli_launches))
+                       serve_launches, train_cli_launches, multi_launches))
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
 

@@ -12,8 +12,15 @@ the port's `DiffewsPipeline` on the CUDA card.  What differs:
     package's platform hook;
   - `--attn_impl` auto / xla / pallas map onto the pipeline's auto /
     dense / flash;
-  - `--num_data_shards` / `--num_shot_shards` above 1 raise (ROADMAP A11),
-    and so do `--vae_impl int8` and `--unet_int8` (A12, in the pipeline).
+  - multi-device runs go one process per device under `torchrun`
+    (`torchrun --nproc_per_node N -m diffews_tpu_torch.cli.evaluate
+    --num_data_shards D --num_shot_shards S ...` with N = D·S): every
+    rank runs the same seeded protocol with a ("data",) mesh or a
+    ("shots",) / ("data", "shots") shot mesh (`pipeline.py`), and rank 0
+    alone logs and writes; the checks are the JAX CLI's
+    (`cli/evaluate.py:132-154`);
+  - `--vae_impl int8` and `--unet_int8` raise (ROADMAP A12, in the
+    pipeline).
 
 Usage (mirrors `scripts/eval_coco2014_rthres_1shot_nosample.sh`):
 
@@ -39,6 +46,7 @@ from diffews_tpu_torch.data.dataset import FSSDataset
 from diffews_tpu_torch.evaluation import AverageMeter, Evaluator
 from diffews_tpu_torch.evaluation.meter import EvalLogger
 from diffews_tpu_torch.evaluation.vis import Visualizer
+from diffews_tpu_torch.parallel import mesh as mesh_lib
 from diffews_tpu_torch.pipeline import ATTN_IMPLS, DiffewsPipeline, resolve_device
 
 
@@ -90,10 +98,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "bit for bit the host formula)")
     p.add_argument("--num_shot_shards", type=int, default=1,
                    help="shard each episode's support shots over this many "
-                        "devices; not ported (ROADMAP A11), only 1")
+                        "devices (one torchrun rank each)")
     p.add_argument("--num_data_shards", type=int, default=1,
-                   help="shard the episode batch over this many devices; not "
-                        "ported (ROADMAP A11), only 1")
+                   help="shard the episode batch over this many devices (one "
+                        "torchrun rank each)")
     p.add_argument("--encode_chunks", type=int, default=0,
                    help="run the batched VAE encode in N chunks: same "
                         "numerics. 0 = auto: chunk only past 48 encoded "
@@ -120,20 +128,25 @@ def evaluate(args, pipe=None, raw_images: bool = True) -> tuple[float, float]:
     reference harness (`main_oss.py:338-372`) on `args.device`.
     `raw_images=False` feeds host-normalized float episodes (numerically
     identical; ~8x more host-to-device bytes)."""
-    if args.num_data_shards > 1 or args.num_shot_shards > 1:
-        raise NotImplementedError(
-            "--num_data_shards / --num_shot_shards > 1: multi-device serving is not "
-            "ported yet (ROADMAP A11)")
     # no card and no --device cpu: raise before anything is loaded
     device = resolve_device(args.device) if pipe is None else None
+    mesh = shot_mesh = None
+    owns_group = not torch.distributed.is_initialized()
+    if pipe is None and (args.num_data_shards > 1 or args.num_shot_shards > 1
+                         or mesh_lib.launched()):
+        mesh, shot_mesh = _meshes(args, device.type)
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
+    is_main = mesh_lib.rank() == 0
 
     # Seeded protocol (main_oss.py:33-36): global RNGs pinned before episode
     # sampling.
     random.seed(0)
     np.random.seed(0)
 
-    EvalLogger.initialize(args, root=args.log_root, benchmark=args.benchmark)
-    Visualizer.initialize(bool(args.visualize), args.vis_path)
+    if is_main:
+        EvalLogger.initialize(args, root=args.log_root, benchmark=args.benchmark)
+    Visualizer.initialize(bool(args.visualize) and is_main, args.vis_path)
 
     if pipe is None:
         pipe = DiffewsPipeline.from_pretrained(
@@ -148,6 +161,8 @@ def evaluate(args, pipe=None, raw_images: bool = True) -> tuple[float, float]:
             vae_impl=args.vae_impl,
             unet_int8=args.unet_int8,
             attn_mask_variant=args.attn_mask_variant,
+            mesh=mesh,
+            shot_mesh=shot_mesh,
         )
 
     # raw_images: episodes stay uint8 HWC on the host; the pipeline
@@ -221,7 +236,33 @@ def evaluate(args, pipe=None, raw_images: bool = True) -> tuple[float, float]:
     miou, fb_iou = meter.write_result("Test", 0)
     EvalLogger.info(f"throughput: {n_done / dt:.3f} episodes/s ({n_done} in {dt:.1f}s)")
     EvalLogger.info("mIoU: %5.2f \t FB-IoU: %5.2f" % (miou, fb_iou))
+    if owns_group and torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
     return miou, fb_iou
+
+
+def _meshes(args, device_type: str):
+    """The run's (mesh, shot_mesh) under torchrun, with the JAX CLI's
+    checks: "data" divides --bsz, "shots" divides --nshot, and the world
+    has as many ranks as the shard counts' product."""
+    if not mesh_lib.launched():
+        raise RuntimeError(
+            f"--num_data_shards {args.num_data_shards} / --num_shot_shards "
+            f"{args.num_shot_shards}: launch one process per device with torchrun "
+            f"--nproc_per_node {args.num_data_shards * args.num_shot_shards} "
+            "-m diffews_tpu_torch.cli.evaluate ...")
+    if args.bsz % args.num_data_shards:
+        raise SystemExit(f"--bsz {args.bsz} must be divisible by "
+                         f"--num_data_shards {args.num_data_shards}")
+    if args.nshot % args.num_shot_shards:
+        raise SystemExit(f"--nshot {args.nshot} must be divisible by "
+                         f"--num_shot_shards {args.num_shot_shards}")
+    mesh_lib.maybe_initialize_distributed(device_type=device_type)
+    if args.num_shot_shards > 1:
+        # a 2-D ("data", "shots") mesh when --num_data_shards > 1 too
+        return None, mesh_lib.make_shot_mesh(device_type, args.num_shot_shards,
+                                             n_data=args.num_data_shards)
+    return mesh_lib.make_mesh(device_type, args.num_data_shards), None
 
 
 def main(argv=None):

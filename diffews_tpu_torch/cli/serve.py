@@ -55,8 +55,10 @@ episodes at the artifact's frozen (bsz, nshot) — no cache endpoints.
 
 Runs on the CUDA card unless `--device cpu` is given (the kernels' plain
 versions); on a host without a card it raises.  `--num_data_shards` /
-`--num_shot_shards` above 1 raise (multi-device serving, ROADMAP A11), and
-so do `--vae_impl int8` and `--unet_int8` (W8A8, A12).
+`--num_shot_shards` above 1 raise: a daemon of one process per device needs
+rank 0 to hand every request to the other ranks, which is not ported
+(ROADMAP A11b; the pipeline's `mesh` / `shot_mesh` are).  So do
+`--vae_impl int8` and `--unet_int8` (W8A8, A12).
 """
 
 from __future__ import annotations
@@ -353,7 +355,7 @@ class ModelServer:
                 "caches": len(self._caches), "model": self.model_desc,
                 "bsz": self.bsz, "nshot": self.nshot,
                 "batch_window_ms": self.batch_window * 1e3,
-                "mesh": "",  # multi-device serving is not ported (A11)
+                "mesh": "",  # the daemon serves on one device (ROADMAP A11b)
                 "mode": "artifact" if self.artifact is not None else "pipeline"}
 
     def stats_snapshot(self) -> dict:
@@ -824,10 +826,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "not allocate)")
     p.add_argument("--num_data_shards", type=int, default=1,
                    help="shard the server batch over this many devices; not "
-                        "ported (ROADMAP A11), only 1")
+                        "ported (ROADMAP A11b), only 1")
     p.add_argument("--num_shot_shards", type=int, default=1,
                    help="shard episode support shots over this many "
-                        "devices; not ported (ROADMAP A11), only 1")
+                        "devices; not ported (ROADMAP A11b), only 1")
     p.add_argument("--half_precision", action="store_true",
                    help="bf16 compute (the serving configuration on the card)")
     p.add_argument("--attn_impl", default="auto", choices=sorted(ATTN_IMPLS),
@@ -849,8 +851,8 @@ def make_server(args) -> ModelServer:
     # raised before any checkpoint or artifact is touched
     if args.num_data_shards > 1 or args.num_shot_shards > 1:
         raise NotImplementedError(
-            "--num_data_shards / --num_shot_shards > 1: multi-device serving is not "
-            "ported yet (ROADMAP A11)")
+            "--num_data_shards / --num_shot_shards > 1: the daemon's request "
+            "broadcast to one process per device is not ported yet (ROADMAP A11b)")
     if args.vae_impl == "int8" or args.unet_int8:
         raise NotImplementedError(
             "--vae_impl int8 / --unet_int8: W8A8 is not ported yet (ROADMAP A12)")

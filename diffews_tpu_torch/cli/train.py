@@ -14,13 +14,32 @@ differs:
     package's platform hook;
   - `--attn_impl` auto / xla / pallas map onto the step's auto / dense /
     flash (`pipeline.ATTN_IMPLS`);
-  - multi-device training (`--fsdp`, `--multihost`, `--num_data_shards` or
-    `--num_model_shards` above 1) raises (ROADMAP A11);
+  - multi-device training runs one process per device under `torchrun`
+    (`torchrun --nproc_per_node N -m diffews_tpu_torch.cli.train
+    --num_data_shards N [--fsdp] ...`; over several nodes torchrun's
+    `--nnodes` / `--node_rank` give the node split, and `--multihost` is
+    accepted for parity with the JAX CLI): data parallelism with the
+    gradients mean-reduced over "data", or FSDP with the state born sharded
+    (`parallel/mesh.py`).  A torch node is a JAX process: its ranks sample
+    the node's batch alike (seeds offset by the node index, as JAX offsets
+    them by the process index) and each keeps its rows, so one node of N
+    ranks runs JAX's one-process N-chip stream.  Rank 0 alone logs,
+    validates and writes; checkpoints equal an unsharded run's.  The mesh
+    runs over the device's backend (NCCL on the card, gloo on the CPU).
+    A preemption stops every rank one step after the signal: the ranks
+    agree on the stop step a step late, so that no step waits on the host.
+    `--num_model_shards` above 1 raises (tensor parallelism, ROADMAP A11b);
   - the optimizer, EMA and step state is `train_state.pt`
     (`training/checkpoints.py`), not flax msgpack;
   - each step's posterior-sample noise is drawn from a CPU generator keyed
     by (seed, step) (`step_noise`), so the stream is the same on every
-    device; `--profile_step` writes a `torch.profiler` trace.
+    device; `--profile_step` writes a `torch.profiler` trace;
+  - on a CUDA device the CLI sets `torch.backends.cudnn.deterministic`
+    while it runs, and puts the process's setting back when `main`
+    returns: cuDNN's default algorithms may sum a convolution's gradient in
+    a different order from run to run, and the exact resume promised above
+    needs the same bits every time (the JAX package's compiled step is
+    deterministic as it stands).
 
 Usage (mirrors `scripts/train_coco_*.sh`):
 
@@ -49,6 +68,7 @@ import torch
 from diffews_tpu_torch import checkpoint as ckpt_lib
 from diffews_tpu_torch.data.dataset import FSSDataset
 from diffews_tpu_torch.models import clip_text
+from diffews_tpu_torch.parallel import mesh as mesh_lib
 from diffews_tpu_torch.pipeline import ATTN_IMPLS, resolve_device
 from diffews_tpu_torch.training import checkpoints as tck
 from diffews_tpu_torch.training import lora as lora_lib
@@ -106,14 +126,16 @@ def build_parser() -> argparse.ArgumentParser:
                         "checkpoints with `cli/evaluate.py "
                         "--attn_mask_variant`")
     p.add_argument("--no_remat", action="store_true")
-    # parallelism: one device only (ROADMAP A11)
+    # parallelism: one torchrun rank per device
     p.add_argument("--num_data_shards", type=int, default=0,
-                   help="data-parallel size; 0 or 1 = the one device "
-                        "(more is not ported, ROADMAP A11)")
+                   help="data-parallel size (0 = every rank); above 1, or under "
+                        "torchrun, the ranks' world must have this many")
     p.add_argument("--multihost", action="store_true",
-                   help="multi-host training; not ported (ROADMAP A11)")
+                   help="accepted for parity with the JAX CLI; a multi-node run "
+                        "takes its node split from torchrun (--nnodes, --node_rank), "
+                        "and outside torchrun the flag raises")
     p.add_argument("--num_model_shards", type=int, default=1,
-                   help="tensor-parallel size; only 1 (ROADMAP A11)")
+                   help="tensor-parallel size; only 1 (ROADMAP A11b)")
     # LoRA (no reference equivalent: the reference only fine-tunes the
     # whole UNet); checkpoints still write the merged model
     p.add_argument("--lora_rank", type=int, default=0,
@@ -123,8 +145,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--lora_targets", type=str, default="attn",
                    choices=["attn", "attn+ff"])
     p.add_argument("--fsdp", action="store_true",
-                   help="sharded parameters and optimizer state; not ported "
-                        "(ROADMAP A11)")
+                   help="shard the float32 masters, Adam moments and EMA over the "
+                        "data ranks (born sharded); under torchrun")
     # checkpointing / logging
     p.add_argument("--checkpointing_steps", type=int, default=2000)
     p.add_argument("--checkpoints_total_limit", type=int, default=None)
@@ -242,6 +264,11 @@ def _episode_to_streams(batch, rng: random.Random, max_nshot: int):
     return q, qm, sup, sm, shot_mask
 
 
+def _deterministic_cudnn():
+    """Exact resume on the card: cuDNN's deterministic algorithms only."""
+    torch.backends.cudnn.deterministic = True
+
+
 def step_noise(seed: int, step: int, shape) -> torch.Tensor:
     """The posterior-sample noise of optimizer step `step`: standard normal
     draws of `shape` (gas, images, h, w, latent channels), float32, from a
@@ -251,25 +278,82 @@ def step_noise(seed: int, step: int, shape) -> torch.Tensor:
     return torch.randn(tuple(shape), generator=gen)
 
 
+def _rank_noise(noise: torch.Tensor, b: int, n: int, rows: slice,
+                attn_mask_variant: bool) -> torch.Tensor:
+    """This rank's images of the global batch's noise (G, images, ...): the
+    step encodes [query (B) ‖ query mask (B) ‖ supports (B·N) ‖ support
+    masks (B·N)] (no support masks under the attn-mask variant), so the
+    rows `rows` of the batch own those slices of each stream."""
+    streams = [(0, 1), (b, 1), (2 * b, n)]
+    if not attn_mask_variant:
+        streams.append((2 * b + b * n, n))
+    return torch.cat([noise[:, off + rows.start * k:off + rows.stop * k]
+                      for off, k in streams], dim=1)
+
+
+def _setup_mesh(args, device_type: str):
+    """(mesh, host_index, host_count, owns_group): the ("data",) mesh of a
+    torchrun launch (None for one plain process) on `device_type`'s
+    backend, with the JAX CLI's checks."""
+    if args.num_model_shards > 1:
+        raise NotImplementedError("--num_model_shards > 1: tensor parallelism is not "
+                                  "ported (ROADMAP A11b)")
+    if not (args.fsdp or args.multihost or args.num_data_shards > 1 or mesh_lib.launched()):
+        return None, 0, 1, False
+    if not mesh_lib.launched():
+        raise RuntimeError(
+            "--fsdp / --multihost / --num_data_shards > 1: launch one process per "
+            f"device with torchrun --nproc_per_node {max(args.num_data_shards, 1)} "
+            "-m diffews_tpu_torch.cli.train ...")
+    owns = not torch.distributed.is_initialized()
+    host_idx, host_cnt = mesh_lib.maybe_initialize_distributed(device_type=device_type)
+    mesh = mesh_lib.make_mesh(device_type, args.num_data_shards or None)
+    return mesh, host_idx, host_cnt, owns
+
+
 def main(argv=None) -> dict:
     """Train; returns a report of the run (steps, logged losses and walls,
     load / resume seconds, each save's snapshot and write seconds and
-    bytes)."""
+    bytes; rank 0's under torchrun)."""
     args = build_parser().parse_args(argv)
-    if (args.fsdp or args.multihost or args.num_data_shards > 1
-            or args.num_model_shards > 1):
-        raise NotImplementedError(
-            "--fsdp / --multihost / --num_data_shards or --num_model_shards > 1: "
-            "multi-device training is not ported yet (ROADMAP A11)")
     device = resolve_device(args.device)  # no card and no --device cpu: raise now
+    deterministic = torch.backends.cudnn.deterministic
+    if device.type == "cuda":
+        _deterministic_cudnn()
+    try:
+        return _train(args, device)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def _train(args, device) -> dict:
+    # ---- multi-device bootstrap (before any device use) ----
+    mesh, host_idx, host_cnt, owns_group = _setup_mesh(args, device.type)
+    if mesh is not None and device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    is_main = mesh_lib.rank() == 0
+    if args.lora_rank > 0 and args.fsdp:
+        raise SystemExit("--fsdp with --lora_rank is pointless (the adapter state is "
+                         "rank-sized); drop one")
+    if args.train_batch_size % host_cnt:
+        raise SystemExit(f"train_batch_size {args.train_batch_size} not divisible "
+                         f"by process count {host_cnt}")
+    local_bs = args.train_batch_size // host_cnt
+    data_group = mesh_lib.axis_group(mesh, "data") if mesh is not None else None
+    # this rank's rows of the global batch (all of them for one process)
+    my_rows = (mesh_lib.rows(args.train_batch_size, mesh_lib.axis_size(mesh, "data"),
+                             mesh_lib.axis_rank(mesh, "data"))
+               if mesh is not None else slice(0, args.train_batch_size))
     report = {"device": str(device), "log": [], "saves": []}
 
     if args.seed is not None:
-        random.seed(args.seed)
-        np.random.seed(args.seed)
+        # per-node seed offset: each node samples its own episodes (JAX's
+        # per-process offset, the DDP-sampler equivalent)
+        random.seed(args.seed + host_idx)
+        np.random.seed(args.seed + host_idx)
     # All training-stream randomness is counter-keyed rather than stateful:
-    # episode sampling by (seed, process, benchmark, batch index) through
-    # the loader's batch_seed mode, shot subsets by (seed, process, micro
+    # episode sampling by (seed, node, benchmark, batch index) through
+    # the loader's batch_seed mode, shot subsets by (seed, node, micro
     # index), the noise by (seed, step).  The stream is a pure function of
     # (seed, global_step): resume continues it exactly with no RNG state in
     # checkpoints, and validation (which replays the seeded eval protocol)
@@ -311,6 +395,7 @@ def main(argv=None) -> dict:
     unet, unet_cfg = bundle.unet, bundle.unet_cfg
     bundle.unet = None
 
+    layout = None  # the FSDP layout of the state, under --fsdp
     base_c = base_host = None
     if args.lora_rank > 0:
         # the f32 base stays on the host for the checkpoint merges (the
@@ -323,21 +408,33 @@ def main(argv=None) -> dict:
                                    lora_lib.target_filter(args.lora_targets))
         n_lora = sum(t.numel() for ab in lora0.values() for t in ab.values())
         report["trainable_params"] = n_lora
-        print(f"LoRA rank {args.lora_rank} ({args.lora_targets}): "
-              f"{n_lora / 1e6:.2f}M trainable params")
+        if is_main:
+            print(f"LoRA rank {args.lora_rank} ({args.lora_targets}): "
+                  f"{n_lora / 1e6:.2f}M trainable params")
         state = init_state(tcfg, lora_lib.flatten(lora0), device=device)
-        step_fn = lora_lib.make_lora_train_step(tcfg, unet)
+        step_fn = lora_lib.make_lora_train_step(tcfg, unet, data_group=data_group)
+    elif args.fsdp:
+        # born sharded: each rank moves only its shards to the device; the
+        # module stays on the host as the structure the gathered weights
+        # are bound to
+        report["trainable_params"] = sum(p.numel() for p in unet.parameters())
+        state, layout = mesh_lib.init_state_fsdp(tcfg, dict(unet.named_parameters()), mesh,
+                                                 device=device)
+        step_fn = make_train_step(tcfg, unet, layout=layout)
     else:
         # the masters are the module's own parameters, moved once
         unet = unet.to(device=device, memory_format=fmt)
         state = init_state(tcfg, dict(unet.named_parameters()), device=device)
         report["trainable_params"] = sum(p.numel() for p in state.params.values())
-        step_fn = make_train_step(tcfg, unet)
+        step_fn = make_train_step(tcfg, unet, data_group=data_group)
     lora_scale = lora_lib.lora_scale(tcfg) if args.lora_rank > 0 else None
 
     def merged_unet_params(st):
         """The full UNet weights: the live masters under full fine-tuning,
-        the compute-dtype base + adapters in LoRA mode."""
+        the compute-dtype base + adapters in LoRA mode; under FSDP gathered
+        to the host (a collective every rank joins)."""
+        if layout is not None:
+            return tck.host_fetch(st.params, layout)
         if args.lora_rank == 0:
             return st.params
         with torch.no_grad():
@@ -353,16 +450,18 @@ def main(argv=None) -> dict:
             resumed_in_output_dir = (os.path.dirname(os.path.abspath(ckpt))
                                      == os.path.abspath(args.output_dir))
             t0 = time.perf_counter()
-            state, global_step = tck.load_checkpoint(ckpt, state, lora=args.lora_rank > 0)
+            state, global_step = tck.load_checkpoint(ckpt, state, lora=args.lora_rank > 0,
+                                                     layout=layout)
             report["resume_s"] = time.perf_counter() - t0
-            print(f"resumed from {ckpt} @ step {global_step}")
+            if is_main:
+                print(f"resumed from {ckpt} @ step {global_step}")
 
     # ---- data: round-robin over benchmarks (multitask) ----
     FSSDataset.initialize(args.resolution, args.datapath, raw_images=True)
     benchmarks = [b.strip() for b in args.benchmark.split(",") if b.strip()]
-    loaders = [FSSDataset.build_dataloader(b, args.train_batch_size,
+    loaders = [FSSDataset.build_dataloader(b, local_bs,
                                            args.dataloader_num_workers, args.fold, "trn",
-                                           args.nshot, batch_seed=_mix(base_seed, 0, bi))
+                                           args.nshot, batch_seed=_mix(base_seed, host_idx, bi))
                for bi, b in enumerate(benchmarks)]
     # resume continues the exact episode stream: micro-batch m draws from
     # stream m % n, so after `consumed` micro-batches stream i has served
@@ -381,7 +480,9 @@ def main(argv=None) -> dict:
     robin = itertools.cycle(streams[rot:] + streams[:rot])
 
     writer = wandb_run = None
-    if args.report_to == "tensorboard":
+    if not is_main:
+        pass
+    elif args.report_to == "tensorboard":
         from torch.utils.tensorboard import SummaryWriter
 
         writer = SummaryWriter(os.path.join(args.output_dir, "tb"))
@@ -472,8 +573,12 @@ def main(argv=None) -> dict:
     def save_ckpt(step, background):
         """Checkpoint the state; in LoRA mode `unet/` / `unet_ema/` get the
         merged model (reference layout), merged on the host from the f32
-        base, and the raw adapters ride in `train_state.pt`."""
-        kw = {}
+        base, and the raw adapters ride in `train_state.pt`.  Every rank
+        calls it (under FSDP the snapshot gathers the shards); rank 0
+        alone writes."""
+        if not is_main and layout is None:
+            return None
+        kw = {"layout": layout, "write": is_main}
         if args.lora_rank > 0:
             adapters = tck.host_snapshot(state.params)
             with torch.no_grad():
@@ -487,7 +592,8 @@ def main(argv=None) -> dict:
                         base_host, lora_lib.unflatten(ema_adapters), lora_scale)
                 kw["extra_aux"]["lora_ema"] = ema_adapters
         stats = {"step": step, "background": background}
-        report["saves"].append(stats)
+        if is_main:
+            report["saves"].append(stats)
         return tck.save_checkpoint(args.output_dir, step, state, unet_cfg,
                                    args.checkpoints_total_limit, background=background,
                                    stats=stats, **kw)
@@ -497,7 +603,8 @@ def main(argv=None) -> dict:
     noise_shape = (args.gradient_accumulation_steps, n_img, lh, lh,
                    bundle.vae_cfg.latent_channels)
 
-    os.makedirs(args.output_dir, exist_ok=True)
+    if is_main:
+        os.makedirs(args.output_dir, exist_ok=True)
     preempt, restore_signals = _install_preemption_handler()
     t0 = time.time()
     last_logged_step, last_logged_t = global_step, t0
@@ -507,8 +614,12 @@ def main(argv=None) -> dict:
     # saved when it lives in this output_dir (resuming a foreign checkpoint
     # with no further steps must still write one here); -1 = nothing saved
     last_saved_step = global_step if global_step and resumed_in_output_dir else -1
+    # a signal can straddle a step boundary between ranks: they agree on the
+    # stop step, or one rank would enter the final save's gathers while
+    # another runs the next step
+    vote = mesh_lib.StopVote(data_group, device) if mesh is not None else None
     while global_step < args.max_train_steps:
-        if args.profile_step and global_step + 1 == args.profile_step:
+        if is_main and args.profile_step and global_step + 1 == args.profile_step:
             # steps [profile_step, profile_step + profile_num_steps) land in
             # the trace
             acts = [torch.profiler.ProfilerActivity.CPU]
@@ -519,13 +630,21 @@ def main(argv=None) -> dict:
         micro = []
         for j in range(args.gradient_accumulation_steps):
             mi = global_step * args.gradient_accumulation_steps + j
-            shot_rng = random.Random(_mix(base_seed, 0, mi, 1))
+            shot_rng = random.Random(_mix(base_seed, host_idx, mi, 1))
             micro.append(_episode_to_streams(next(next(robin)), shot_rng, args.nshot))
-        batch = {k: to_device(torch.from_numpy(np.stack([mb[i] for mb in micro])), device)
-                 for i, k in enumerate(("query", "q_mask3", "supports", "s_mask3",
-                                        "shot_mask"))}
-        # counter-keyed (not a sequential chain): resume-invariant
-        noise = to_device(step_noise(base_seed, global_step, noise_shape), device)
+        host_batch = {k: np.stack([mb[i] for mb in micro])
+                      for i, k in enumerate(("query", "q_mask3", "supports", "s_mask3",
+                                             "shot_mask"))}
+        # this rank's rows of its node's batch (the whole batch alone)
+        batch = {k: to_device(torch.from_numpy(np.ascontiguousarray(v)), device)
+                 for k, v in mesh_lib.put_global_batch(host_batch, mesh).items()}
+        # counter-keyed (not a sequential chain): resume-invariant; drawn for
+        # the global batch, of which this rank takes its rows' images
+        noise = step_noise(base_seed, global_step, noise_shape)
+        if mesh is not None:
+            noise = _rank_noise(noise, args.train_batch_size, args.nshot, my_rows,
+                                args.attn_mask_variant)
+        noise = to_device(noise, device)
         if args.lora_rank > 0:
             state, metrics = step_fn(state, batch, noise, base_c, vae, text_embed)
         else:
@@ -543,7 +662,7 @@ def main(argv=None) -> dict:
             profiler = None
             print(f"profiler trace through step {global_step} written to {prof_dir}")
 
-        if global_step % args.logging_steps == 0 or global_step == 1:
+        if (global_step % args.logging_steps == 0 or global_step == 1) and is_main:
             loss = float(metrics["loss"])
             now = time.time()
             rate = global_step / (now - t0)
@@ -571,15 +690,21 @@ def main(argv=None) -> dict:
                 log_scalar("nonfinite_steps", nf, global_step)
 
         if args.validation_steps and global_step % args.validation_steps == 0:
-            run_validation(merged_unet_params(state), global_step)
+            # the weights are gathered on every rank (FSDP); rank 0 validates
+            vparams = merged_unet_params(state)
+            if is_main:
+                run_validation(vparams, global_step)
+            del vparams
 
         if global_step % args.checkpointing_steps == 0:
             # the snapshot is taken now; the disk write overlaps the next steps
             handle = save_ckpt(global_step, background=True)
             last_saved_step = global_step
-            print(f"saving {handle.ckpt_dir} (background)")
+            if is_main:
+                print(f"saving {handle.ckpt_dir} (background)")
 
-        if preempt.is_set():
+        stop = preempt.is_set() if vote is None else vote(preempt.is_set())
+        if stop:
             preempted = True
             break
 
@@ -593,14 +718,18 @@ def main(argv=None) -> dict:
         save_ckpt(global_step, background=False)
     if writer:
         writer.close()
+    if owns_group:
+        torch.distributed.destroy_process_group()
     report["global_step"] = global_step
     report["preempted"] = preempted
-    if preempted:
+    if preempted and is_main:
         print(f"training preempted at step {global_step}/{args.max_train_steps}"
               f" — checkpoint-{global_step} written; resume with "
               "--resume_from_checkpoint latest", flush=True)
+    if preempted:
         return report
-    print("training done")
+    if is_main:
+        print("training done")
     return report
 
 

@@ -29,8 +29,16 @@ the query stream alone and attends over `[own ‖ cached support]` at each
 site.  The support rows never read the query rows, so the captured K/V
 equal a joint forward's.
 
+Shot-parallel attention (`shot_group`, JAX `shot_axis`, `unet.py:59-123,
+189-260`): each rank of a process group passes its local shard of shots
+(`ref_sample`, `ref_context`, `shot_mask`, `ref_mask`) beside the full
+query stream; every fused self-attention site merges the query rows'
+partial softmaxes over the group
+(`ops.attention.shot_parallel_fused_kv_attention`), so each rank returns
+the whole query prediction.
+
 `state_dict` keys are the diffusers `UNet2DConditionModel` keys plus
-`conv_in_ref.*`.  Shot-parallel attention is not ported yet (ROADMAP A11).
+`conv_in_ref.*`.
 """
 
 from __future__ import annotations
@@ -48,7 +56,8 @@ from diffews_tpu_torch.models.layers import (Conv2d, Downsample2D, FeedForward,
                                              TimestepEmbedding, Upsample2D, silu,
                                              timestep_embedding)
 from diffews_tpu_torch.ops.attention import (cross_attention, fused_kv_attention,
-                                             merge_heads, split_heads)
+                                             merge_heads, shot_parallel_fused_kv_attention,
+                                             split_heads)
 from diffews_tpu_torch.ops.resize import nearest_resize
 
 ATTN_EPS = 1e-6  # Transformer2D GroupNorm epsilon
@@ -65,6 +74,7 @@ class _Streams:
     attn_impl: str
     kv_capture: Optional[list] = None   # receives (k_sup, v_sup, bias) per site
     kv_iter: Optional[Iterator] = None  # yields captured entries, in site order
+    shot_group: object = None           # process group the shots are sharded over
 
 
 class Attention(nn.Module):
@@ -107,9 +117,15 @@ class Attention(nn.Module):
                 # copies of the support rows alone: a view would keep the
                 # whole site's K and V (query rows too) alive in the cache
                 st.kv_capture.append((k_sup.clone(), v_sup.clone(), st.sup_bias))
-            out_tag = fused_kv_attention(
-                q[r:], k[r:], v[r:], k_sup, v_sup, shot_mask=st.shot_mask,
-                support_bias=st.sup_bias, impl=st.attn_impl)
+            if st.shot_group is not None:
+                # shots sharded over the group: exact partial-softmax merge
+                out_tag = shot_parallel_fused_kv_attention(
+                    q[r:], k[r:], v[r:], k_sup, v_sup, group=st.shot_group,
+                    shot_mask=st.shot_mask, support_bias=st.sup_bias, impl=st.attn_impl)
+            else:
+                out_tag = fused_kv_attention(
+                    q[r:], k[r:], v[r:], k_sup, v_sup, shot_mask=st.shot_mask,
+                    support_bias=st.sup_bias, impl=st.attn_impl)
             out = torch.cat([out_ref, out_tag], dim=0)
         return self.to_out[0](merge_heads(out))
 
@@ -253,6 +269,7 @@ class UNet2DConditionModel(nn.Module):
         remat: bool = False,
         kv_capture: Optional[list] = None,
         kv_cache=None,
+        shot_group=None,
     ) -> torch.Tensor:
         """Joint support+query forward.
 
@@ -270,6 +287,10 @@ class UNet2DConditionModel(nn.Module):
         order, in place of `ref_sample`: the query stream runs alone and
         attends over `[own ‖ cached support]`; entries of batch 1 serve any
         query batch, and `shot_mask` applies to the cached shots.
+        shot_group: optional process group the shots are sharded over:
+        `ref_sample`, `ref_context`, `shot_mask` and `ref_mask` carry this
+        rank's shots, `sample`, `context` and `timestep` the same on every
+        rank; each rank returns the whole query prediction.
         Returns (B, H, W, out_channels) for the query rows."""
         if kv_cache is not None and ref_sample is not None:
             raise ValueError("kv_cache replaces the support stream; "
@@ -277,6 +298,10 @@ class UNet2DConditionModel(nn.Module):
         if kv_capture is not None and ref_sample is None:
             raise ValueError("kv_capture requires ref_sample (a live support "
                              "stream to capture)")
+        if shot_group is not None and (kv_capture is not None or kv_cache is not None):
+            raise ValueError("the support-KV cache does not compose with "
+                             "shot-parallel serving (a shard's cache would skip "
+                             "the cross-device softmax merge)")
         if remat and (kv_capture is not None or kv_cache is not None):
             # checkpoint runs each layer again in the backward pass, which
             # would consume the cache twice and capture every site twice
@@ -337,7 +362,7 @@ class UNet2DConditionModel(nn.Module):
 
         def streams(sid):
             return _Streams(ref_rows, n_shots, shot_mask, sup_biases.get(sid), attn_impl,
-                            kv_capture, kv_iter)
+                            kv_capture, kv_iter, shot_group)
 
         def layer(fn, *args):
             return checkpoint(fn, *args, use_reentrant=False) if remat else fn(*args)

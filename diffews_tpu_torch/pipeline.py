@@ -21,6 +21,26 @@ site's support K/V in a `SupportCache`; `predict_cached` then runs the
 query's encode, a query-only UNet forward over `[own ‖ cached support]`
 and steps 4-6 for any number of queries.
 
+Multi-device serving (JAX `pipeline.py:195-310,676-762`), one process per
+device under `torchrun`, every rank calling the same entry points with the
+same arguments:
+
+  - `mesh` (a ("data",) `DeviceMesh`, `parallel.mesh.make_mesh`): each rank
+    runs its contiguous rows of the episode batch, and `predict` returns the
+    whole batch on every rank, all-gathered over "data", as the JAX call
+    returns the global array.  `precompute_supports` builds a batch-1 cache
+    on every rank (it serves any query batch) and a batch-B cache row for
+    row with the query batch;
+  - `shot_mesh` (("shots",) or ("data", "shots"), `make_shot_mesh`): each
+    rank encodes and runs its local shots only, the query stream is
+    replicated over "shots", and every fused self-attention merges the
+    partial softmaxes over "shots"; a "data" axis shards the batch as
+    above.  It does not compose with `mesh` or with the support cache.
+
+The gathers use `all_gather`, which gloo offers for CPU tensors only: a
+gloo mesh over CUDA tensors (two ranks on one card) serves `shot_mesh`
+without a "data" axis.
+
 PyTorch runs eagerly and CUDA launches are asynchronous, so `predict_async`
 and `predict_cached_async` return as soon as the work is queued;
 `PendingSeg.result()` is the synchronisation point (uploads go through
@@ -40,6 +60,7 @@ import torch
 from diffews_tpu_torch import checkpoint as ckpt_lib
 from diffews_tpu_torch.configs import UNetConfig, VAEConfig
 from diffews_tpu_torch.models import clip_text
+from diffews_tpu_torch.parallel import mesh as mesh_lib
 from diffews_tpu_torch.ops.resize import nearest_resize
 from diffews_tpu_torch.scheduler import DDIMScheduler
 from diffews_tpu_torch.utils import to_device
@@ -115,7 +136,12 @@ class DiffewsPipeline:
         design); "auto" encodes through the fused chain when the encode
         batch has <= 4 images on a CUDA device, else "xla", and decodes
         through "xla".  "int8" is not ported (ROADMAP A12).
-      unet_int8, mesh, shot_mesh: only the defaults are ported.
+      mesh: optional ("data",) `DeviceMesh`: the episode batch splits over
+        its ranks and every rank gets the whole prediction.  A "model" axis
+        (tensor parallelism) raises (ROADMAP A11b).
+      shot_mesh: optional ("shots",) or ("data", "shots") `DeviceMesh`: the
+        support shots (and the batch, over "data") split over its ranks.
+      unet_int8: not ported (ROADMAP A12).
     """
 
     def __init__(self, bundle: ckpt_lib.PipelineBundle, *, device=None,
@@ -129,9 +155,29 @@ class DiffewsPipeline:
             raise ValueError(f"unknown vae_impl {vae_impl!r} (expected one of {VAE_IMPLS})")
         if unet_int8:
             raise NotImplementedError("unet_int8: W8A8 is not ported yet (ROADMAP A12)")
-        if mesh is not None or shot_mesh is not None:
-            raise NotImplementedError(
-                "mesh / shot_mesh: multi-device serving is not ported yet (ROADMAP A11)")
+        for m in (mesh, shot_mesh):
+            if m is not None and "model" in (m.mesh_dim_names or ()):
+                raise NotImplementedError(
+                    'a "model" mesh axis: tensor parallelism is not ported (ROADMAP A11b)')
+        if mesh is not None and shot_mesh is not None:
+            raise ValueError(
+                "pass either mesh (episode data-parallel) or shot_mesh; to "
+                'compose them, give shot_mesh a 2-D ("data", "shots") mesh '
+                "(parallel.mesh.make_shot_mesh(device_type, n_shards, n_data=...))")
+        if mesh is not None and "data" not in (mesh.mesh_dim_names or ()):
+            raise ValueError('mesh must have a "data" axis')
+        if shot_mesh is not None and "shots" not in (shot_mesh.mesh_dim_names or ()):
+            raise ValueError('shot_mesh must have a "shots" axis')
+        self.mesh, self.shot_mesh = mesh, shot_mesh
+        m = mesh if mesh is not None else shot_mesh
+        has_data = m is not None and "data" in m.mesh_dim_names
+        self._data_group = mesh_lib.axis_group(m, "data") if has_data else None
+        self._n_data = mesh_lib.axis_size(m, "data") if has_data else 1
+        self._data_rank = mesh_lib.axis_rank(m, "data") if has_data else 0
+        self._shot_group = (mesh_lib.axis_group(shot_mesh, "shots")
+                            if shot_mesh is not None else None)
+        self._n_shots = mesh_lib.axis_size(shot_mesh, "shots") if shot_mesh is not None else 1
+        self._shot_rank = mesh_lib.axis_rank(shot_mesh, "shots") if shot_mesh is not None else 0
         if attn_impl not in ("auto", "flash", "dense"):
             raise ValueError(f"unknown attn_impl {attn_impl!r}")
         self.device = resolve_device(device)
@@ -205,8 +251,9 @@ class DiffewsPipeline:
         return torch.cat([enc(c) for c in all_imgs.split(per)], dim=0)
 
     def _x0_latent(self, query, supports, masks, text_embed, shot_mask,
-                   denoising_steps: int) -> torch.Tensor:
-        """Predicted x0 latent of the episode."""
+                   denoising_steps: int, shot_group=None) -> torch.Tensor:
+        """Predicted x0 latent of the episode (of this rank's shots under
+        `shot_group`)."""
         b, n = supports.shape[0], supports.shape[1]
         query, supports = self._norm_img(query), self._norm_img(supports)
         masks = self._norm_mask(masks)
@@ -235,7 +282,7 @@ class DiffewsPipeline:
         for t in self.scheduler.timesteps:
             v = self.unet(latent, int(t) * self.test_timestep, ctx, ref_sample=ref,
                           shot_mask=shot_mask, ref_mask=ref_mask,
-                          attn_impl=self.attn_impl)
+                          attn_impl=self.attn_impl, shot_group=shot_group)
             latent, x0 = self.scheduler.step(v, int(t), latent)
         return x0
 
@@ -309,18 +356,35 @@ class DiffewsPipeline:
         (`device_mask_from_seg`)."""
         query = _to_nhwc(np.asarray(query), 4)
         supports = _to_nhwc(np.asarray(supports), 5)
+        masks = _masks_nhwc(support_masks)
+        b, n = supports.shape[:2]
+        if self.shot_mesh is not None:
+            if n % self._n_shots:
+                raise ValueError(f"the shots axis ({self._n_shots}) must divide n-shot "
+                                 f"{n}; pad with shot_mask")
+            if shot_mask is None:
+                shot_mask = np.ones((b, n), bool)
+        # this rank's rows (over "data") and shots (over "shots")
+        rs = mesh_lib.rows(b, self._n_data, self._data_rank, "episode batch")
+        ss = mesh_lib.rows(n, self._n_shots, self._shot_rank, "n-shot")
+        if shot_mask is not None:
+            shot_mask = np.asarray(shot_mask, bool)[rs, ss]
         x0 = self._x0_latent(
-            self._put(query), self._put(supports), self._put(_masks_nhwc(support_masks)),
-            self.empty_text_embed, self._put_shot_mask(shot_mask), denoising_steps)
+            self._put(query[rs]), self._put(supports[rs, ss]), self._put(masks[rs, ss]),
+            self.empty_text_embed, self._put_shot_mask(shot_mask), denoising_steps,
+            shot_group=self._shot_group)
         return self._pending(x0, out_size, r_threshold, threshold, mask_on_device)
 
     def _put_shot_mask(self, shot_mask) -> Optional[torch.Tensor]:
         return None if shot_mask is None else self._put(np.asarray(shot_mask, bool))
 
     def _pending(self, x0, out_size, r_threshold, threshold, mask_on_device) -> "PendingSeg":
-        """Decode, resize and (optionally) threshold on the device; nothing
-        here waits for it."""
+        """Decode, gather the rows over "data", resize and (optionally)
+        threshold on the device; nothing here waits for it (but a gather
+        waits for the other ranks)."""
         img = self._decode_seg(x0)
+        if self._data_group is not None:
+            img = mesh_lib.all_gather_rows(img, self._data_group)
         if out_size is not None and tuple(img.shape[1:3]) != tuple(out_size):
             img = nearest_resize(img, tuple(out_size))
         mask_dev = None
@@ -340,12 +404,24 @@ class DiffewsPipeline:
         images and 4-D {0,1} masks included).  Build with batch 1 to serve
         any query batch (the cache broadcasts), or with batch B to pair row
         for row with B-row query batches.  Queues the work and returns
-        without waiting for the device."""
+        without waiting for the device.  Under a data `mesh` a batch-1 cache
+        is built whole on every rank, a batch-B one row for row with the
+        query batch; under `shot_mesh` it raises."""
+        if self.shot_mesh is not None:
+            raise NotImplementedError(
+                "support-KV caching does not compose with shot-parallel "
+                "serving (the cache would skip the cross-device softmax merge)")
         supports = _to_nhwc(np.asarray(supports), 5)
-        entries = self._capture(self._put(supports), self._put(_masks_nhwc(support_masks)),
+        masks = _masks_nhwc(support_masks)
+        b = supports.shape[0]
+        rs = (slice(None) if b == 1
+              else mesh_lib.rows(b, self._n_data, self._data_rank, "cache batch"))
+        if shot_mask is not None:
+            shot_mask = np.asarray(shot_mask, bool)[rs]
+        entries = self._capture(self._put(supports[rs]), self._put(masks[rs]),
                                 self.empty_text_embed)
         return SupportCache(entries=entries, shot_mask=self._put_shot_mask(shot_mask),
-                            n_shots=supports.shape[1], batch=supports.shape[0])
+                            n_shots=supports.shape[1], batch=b)
 
     @torch.inference_mode()
     def predict_cached_async(self, query, cache: SupportCache, *, denoising_steps: int = 1,
@@ -365,11 +441,15 @@ class DiffewsPipeline:
                 "the support-KV cache is captured at the one-step protocol's "
                 "fixed timestep; multi-step denoising would need a cache per "
                 "timestep")
+        if self.shot_mesh is not None:
+            raise NotImplementedError("support-KV caching does not compose with "
+                                      "shot-parallel serving")
         query = _to_nhwc(np.asarray(query), 4)
         if cache.batch not in (1, query.shape[0]):
             raise ValueError(f"cache batch {cache.batch} must be 1 (broadcast) or match "
                              f"the query batch {query.shape[0]}")
-        x0 = self._x0_latent_cached(self._put(query), cache.entries, cache.shot_mask,
+        rs = mesh_lib.rows(query.shape[0], self._n_data, self._data_rank, "query batch")
+        x0 = self._x0_latent_cached(self._put(query[rs]), cache.entries, cache.shot_mask,
                                     self.empty_text_embed)
         return self._pending(x0, out_size, r_threshold, threshold, mask_on_device)
 

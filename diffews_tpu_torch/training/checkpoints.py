@@ -17,6 +17,13 @@ package's `train_state.msgpack` (flax serialisation) is not read: a
 directory holding only that raises, naming the file.  The `unet/`
 directories are shared both ways.
 
+Multi-device runs (JAX `cli/train.py:555-580,674-694`): every rank calls
+`save_checkpoint` with `write` true on rank 0 alone.  Under FSDP (`layout`)
+the snapshot first gathers every sharded leaf (`host_fetch`, a collective
+all ranks join), so the files are those an unsharded run writes, bit for
+bit.  Resume reads the whole host copy on every rank and each rank keeps
+its shards (`load_checkpoint(..., layout=...)`).
+
 The training step updates parameters in place, so the synchronous
 snapshot copies every tensor to fresh host memory on every device (on the
 CPU `t.cpu()` would return the live storage itself); a background write
@@ -53,9 +60,17 @@ def host_snapshot(tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         return {n: _host_copy(t) for n, t in tensors.items()}
 
 
-def _opt_snapshot(opt) -> dict:
-    return {"count": _host_copy(opt.count), "mu": host_snapshot(opt.mu),
-            "nu": host_snapshot(opt.nu), "notfinite_count": _host_copy(opt.notfinite_count),
+def host_fetch(tensors: Dict[str, torch.Tensor], layout=None) -> Dict[str, torch.Tensor]:
+    """A host copy of the whole leaves: under FSDP every sharded leaf is
+    gathered first (a collective: every rank calls it, in the same order)."""
+    with torch.no_grad():
+        return {n: _host_copy(t if layout is None else layout.gather(n, t))
+                for n, t in tensors.items()}
+
+
+def _opt_snapshot(opt, layout=None) -> dict:
+    return {"count": _host_copy(opt.count), "mu": host_fetch(opt.mu, layout),
+            "nu": host_fetch(opt.nu, layout), "notfinite_count": _host_copy(opt.notfinite_count),
             "total_notfinite": _host_copy(opt.total_notfinite)}
 
 
@@ -92,7 +107,8 @@ def wait_for_pending_saves():
 def save_checkpoint(output_dir: str, step: int, state: TrainState, unet_cfg: UNetConfig,
                     total_limit: Optional[int] = None, background: bool = False,
                     params_override=None, ema_override=None,
-                    extra_aux: Optional[dict] = None, stats: Optional[dict] = None):
+                    extra_aux: Optional[dict] = None, stats: Optional[dict] = None,
+                    layout=None, write: bool = True):
     """Write `state` under `checkpoint-{step}/`.  The snapshot to host
     memory happens here either way (the caller may change `state` right
     after); with `background=True` the disk write and the rotation run in
@@ -103,17 +119,30 @@ def save_checkpoint(output_dir: str, step: int, state: TrainState, unet_cfg: UNe
     `ema_override` (so `unet/`, `unet_ema/` stay reference-readable) and
     the raw adapters in `extra_aux` (`{"lora": ..., "lora_ema": ...}`) for
     exact resume.  `stats`, when given, receives `snapshot_s`, and once the
-    write is done `write_s` and `bytes`."""
+    write is done `write_s` and `bytes`.
+
+    Multi-device: every rank calls it; `layout` (FSDP) gathers the shards
+    first, and only the rank with `write` true snapshots the rest and
+    writes (the others return None)."""
     wait_for_pending_saves()
     ckpt_dir = os.path.join(output_dir, f"checkpoint-{step}")
     tmp_dir = ckpt_dir + ".tmp"
     t0 = time.perf_counter()
-    params = host_snapshot(params_override if params_override is not None else state.params)
-    if ema_override is not None:
-        ema_params = host_snapshot(ema_override)
-    else:
-        ema_params = host_snapshot(state.ema.params) if state.ema is not None else None
-    aux = {"opt_state": _opt_snapshot(state.opt_state), "step": int(state.step),
+    if layout is not None:  # the collectives, on every rank
+        params = host_fetch(state.params, layout)
+        ema_params = host_fetch(state.ema.params, layout) if state.ema is not None else None
+        opt = _opt_snapshot(state.opt_state, layout)
+    if not write:
+        return None
+    if layout is None:
+        params = host_snapshot(params_override if params_override is not None
+                               else state.params)
+        if ema_override is not None:
+            ema_params = host_snapshot(ema_override)
+        else:
+            ema_params = host_snapshot(state.ema.params) if state.ema is not None else None
+        opt = _opt_snapshot(state.opt_state)
+    aux = {"opt_state": opt, "step": int(state.step),
            "ema_step": int(state.ema.step) if state.ema is not None else 0}
     for k, v in (extra_aux or {}).items():
         aux[k] = host_snapshot(v)
@@ -204,19 +233,23 @@ def read_train_state(ckpt_dir: str) -> dict:
     return torch.load(path, map_location="cpu", weights_only=True, mmap=True)
 
 
-def load_checkpoint(ckpt_dir: str, template: TrainState,
-                    lora: bool = False) -> Tuple[TrainState, int]:
+def load_checkpoint(ckpt_dir: str, template: TrainState, lora: bool = False,
+                    layout=None) -> Tuple[TrainState, int]:
     """Restore `checkpoint-{step}/` into `template` (a freshly initialised
     state of the same structure) in place, bit for bit, and return it with
     the step.  With `lora=True` the trainable tensors are the adapters
     stored in `train_state.pt`; `unet/` holds the merged model and is not
-    read (the base weights come from the pretrained checkpoint)."""
+    read (the base weights come from the pretrained checkpoint).  Under
+    FSDP every rank reads the whole files and keeps its shards
+    (`parallel.mesh.shard_host_tree`)."""
+    from diffews_tpu_torch.parallel.mesh import shard_host_tree
+
     aux = read_train_state(ckpt_dir)
     params = aux["lora"] if lora else ckpt_lib.load_unet_state(os.path.join(ckpt_dir, "unet"))
-    _restore(template.params, params, "params")
+    _restore(template.params, shard_host_tree(params, layout), "params")
     opt, saved = template.opt_state, aux["opt_state"]
-    _restore(opt.mu, saved["mu"], "opt_state.mu")
-    _restore(opt.nu, saved["nu"], "opt_state.nu")
+    _restore(opt.mu, shard_host_tree(saved["mu"], layout), "opt_state.mu")
+    _restore(opt.nu, shard_host_tree(saved["nu"], layout), "opt_state.nu")
     dev = opt.count.device
     for k in ("count", "notfinite_count", "total_notfinite"):
         setattr(opt, k, saved[k].to(device=dev, dtype=torch.int32))
@@ -227,7 +260,7 @@ def load_checkpoint(ckpt_dir: str, template: TrainState,
             ema_dir = os.path.join(ckpt_dir, "unet_ema")
             ema_params = (ckpt_lib.load_unet_state(ema_dir) if os.path.isdir(ema_dir)
                           else params)
-        _restore(template.ema.params, ema_params, "ema")
+        _restore(template.ema.params, shard_host_tree(ema_params, layout), "ema")
         template.ema = ema_lib.EMAState(template.ema.params,
                                         torch.tensor(aux["ema_step"], dtype=torch.int32,
                                                      device=dev))

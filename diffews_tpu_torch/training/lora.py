@@ -150,10 +150,12 @@ def make_lora_grad_fn(cfg: state_lib.TrainerConfig, unet: nn.Module) -> state_li
     return grad_fn
 
 
-def make_lora_train_step(cfg: state_lib.TrainerConfig, unet: nn.Module):
+def make_lora_train_step(cfg: state_lib.TrainerConfig, unet: nn.Module, *, data_group=None):
     """Returns `step_fn(state, batch, rng, base_c, vae, text_embed) ->
     (state, metrics)`: `state.make_train_step`'s objective, optimizer and
     EMA over the flat adapters in `state.params`, with the frozen
     compute-dtype base `base_c` (name -> tensor) merged in at every
-    micro-step, so the optimizer state is adapter-sized."""
-    return state_lib.step_from_grad_fn(cfg, make_lora_grad_fn(cfg, unet))
+    micro-step, so the optimizer state is adapter-sized.  `data_group`: as
+    in `state.make_train_step` (LoRA composes with data parallelism)."""
+    return state_lib.step_from_grad_fn(cfg, make_lora_grad_fn(cfg, unet),
+                                       data_group=data_group)

@@ -22,6 +22,19 @@ finite changes nothing (params, moments and the inner count stay) unless
 more than `max_nonfinite_steps` such steps came in a row;
 `notfinite_count` counts the current run of them, `total_notfinite` all.
 
+With a low-precision first moment the decay is optax's under jit: JAX's
+weak typing casts the Python `b1` to the moment's dtype before it
+multiplies the stored moment (bf16(0.9) = 0.8984375), and XLA keeps that
+product and the sum in f32, rounding only the stored result.  So the port
+computes `(1−b1)·g + b1_r·mu.float()` in f32 with `b1_r = b1` rounded to
+`mu_dtype`; an f32 moment is `(1−b1)·g + b1·mu` as written.
+
+Under FSDP (`layout`, a `parallel.mesh.FsdpLayout`) each rank updates its
+shards: the global norm is the SUM `all_reduce` of the sharded leaves'
+squares plus the replicated leaves' own (the same on every rank), and
+apply_if_finite's finite bit is a MAX `all_reduce` of each rank's
+non-finite flag, so every rank takes the same decision.
+
 Everything stays on the device (no host read), so a window of steps runs
 without synchronising.  `update` changes the parameters and the state in
 place; a skipped step leaves them bit for bit as they were.  The adam and
@@ -35,6 +48,7 @@ import dataclasses
 from typing import Dict, NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from diffews_tpu_torch.training.lr import Schedule
 
@@ -61,11 +75,14 @@ def global_norm(tensors) -> torch.Tensor:
 def make_optimizer(schedule: Schedule, *, b1: float = 0.9, b2: float = 0.999,
                    eps: float = 1e-8, weight_decay: float = 1e-2,
                    max_grad_norm: float = 1.0, mu_dtype: torch.dtype = torch.bfloat16,
-                   max_nonfinite_steps: int = 10) -> Optimizer:
+                   max_nonfinite_steps: int = 10, layout=None) -> Optimizer:
     """optax.apply_if_finite(chain(clip_by_global_norm(max_grad_norm),
     adamw(schedule, b1, b2, eps, weight_decay=..., mu_dtype=...)),
     max_nonfinite_steps); `max_nonfinite_steps` 0 leaves out the
     apply_if_finite wrapper (every step applies), as in the JAX package."""
+    low_mu = mu_dtype != torch.float32
+    # optax's weak-typed b1 meets a bf16 moment as bf16(b1)
+    b1_r = float(torch.tensor(b1, dtype=mu_dtype)) if low_mu else b1
 
     def init(params: Dict[str, torch.Tensor]) -> OptState:
         device = next(iter(params.values())).device
@@ -83,6 +100,10 @@ def make_optimizer(schedule: Schedule, *, b1: float = 0.9, b2: float = 0.999,
         gs = [grads[n] for n in names]
         f32 = dict(dtype=torch.float32, device=gs[0].device)
         finite = torch.stack([torch.isfinite(g).all() for g in gs]).all()
+        if layout is not None:
+            bad = (~finite).to(torch.int32)
+            dist.all_reduce(bad, op=dist.ReduceOp.MAX, group=layout.group)
+            finite = bad == 0
         if max_nonfinite_steps > 0:
             notfinite = torch.where(finite, torch.zeros_like(state.notfinite_count),
                                     state.notfinite_count + 1)
@@ -92,7 +113,7 @@ def make_optimizer(schedule: Schedule, *, b1: float = 0.9, b2: float = 0.999,
         else:
             apply = torch.ones((), dtype=torch.bool, device=gs[0].device)
 
-        gnorm = global_norm(gs)
+        gnorm = global_norm(gs) if layout is None else _sharded_norm(names, gs, layout)
         keep = gnorm < max_grad_norm  # optax's trigger: NaN norms clip
         t = (state.count + 1).to(torch.float32)
         bc1 = 1.0 - torch.full((), b1, **f32) ** t
@@ -101,7 +122,10 @@ def make_optimizer(schedule: Schedule, *, b1: float = 0.9, b2: float = 0.999,
         for n, g in zip(names, gs):
             p = params[n]
             g = torch.where(keep, g, (g / gnorm) * max_grad_norm)
-            mu = (1.0 - b1) * g + b1 * state.mu[n]
+            if low_mu:
+                mu = (1.0 - b1) * g + b1_r * state.mu[n].float()
+            else:
+                mu = (1.0 - b1) * g + b1 * state.mu[n]
             nu = (1.0 - b2) * (g * g) + b2 * state.nu[n]
             u = (mu / bc1) / (torch.sqrt(nu / bc2) + eps) + weight_decay * p
             p.copy_(torch.where(apply, p + neg_lr * u, p))
@@ -111,3 +135,12 @@ def make_optimizer(schedule: Schedule, *, b1: float = 0.9, b2: float = 0.999,
         return gnorm
 
     return Optimizer(init, update)
+
+
+def _sharded_norm(names, gs, layout) -> torch.Tensor:
+    """The global norm of gradients of which `layout` shards some leaves."""
+    sq = lambda ts: (torch.stack([t.float().square().sum() for t in ts]).sum()  # noqa: E731
+                     if ts else torch.zeros((), dtype=torch.float32, device=gs[0].device))
+    sharded = sq([g for n, g in zip(names, gs) if layout.sharded(n)])
+    dist.all_reduce(sharded, op=dist.ReduceOp.SUM, group=layout.group)
+    return (sharded + sq([g for n, g in zip(names, gs) if not layout.sharded(n)])).sqrt()

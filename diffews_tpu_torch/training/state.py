@@ -27,6 +27,15 @@ recomputation must read the same compute-dtype weights, which
 would not give.  No `torch.autocast`: it picks other ops to run in bf16
 than the JAX package does.
 
+Data parallelism (`data_group`): each rank runs its rows of the global
+batch, and its micro-steps' averaged gradients and loss are mean-reduced
+over the group before the optimizer (one bucketed SUM `all_reduce`), as
+JAX's global mean over a batch sharded on "data".  FSDP (`layout`, born
+sharded by `parallel.mesh.init_state_fsdp`): the state holds this rank's
+shards; before each micro-step the whole model is all-gathered in the
+compute dtype (the whole model at once; a gather per layer is later
+work), the gradients are mean-reduced and each rank keeps its shards.
+
 The step changes the state in place (parameters, optimizer moments, EMA)
 and returns it with its metrics as device tensors, so a window of steps
 runs without a host read.  Entry points run on `cuda` unless passed
@@ -44,6 +53,7 @@ from torch import nn
 
 from diffews_tpu_torch.configs import CLIPTextConfig
 from diffews_tpu_torch.models import clip_text
+from diffews_tpu_torch.parallel import mesh as mesh_lib
 from diffews_tpu_torch.pipeline import _true_div, resolve_device
 from diffews_tpu_torch.training import ema as ema_lib
 from diffews_tpu_torch.training import lr as lr_lib
@@ -100,7 +110,7 @@ class TrainState:
     step: torch.Tensor               # int32 scalar on the device
 
 
-def make_optimizer(cfg: TrainerConfig) -> Optimizer:
+def make_optimizer(cfg: TrainerConfig, layout=None) -> Optimizer:
     base = lr_lib.get_schedule(cfg.lr_scheduler, cfg.learning_rate, cfg.max_train_steps,
                                cfg.lr_warmup_steps, power=cfg.lr_power)
     k = cfg.lr_steps_per_opt_step
@@ -108,7 +118,7 @@ def make_optimizer(cfg: TrainerConfig) -> Optimizer:
     return _make_optimizer(schedule, b1=cfg.adam_beta1, b2=cfg.adam_beta2,
                            eps=cfg.adam_epsilon, weight_decay=cfg.adam_weight_decay,
                            max_grad_norm=cfg.max_grad_norm, mu_dtype=cfg.adam_mu_dtype,
-                           max_nonfinite_steps=cfg.max_nonfinite_steps)
+                           max_nonfinite_steps=cfg.max_nonfinite_steps, layout=layout)
 
 
 def init_state(cfg: TrainerConfig, unet_params: Dict[str, torch.Tensor], *,
@@ -237,6 +247,35 @@ def make_grad_fn(cfg: TrainerConfig, unet: nn.Module) -> GradFn:
     return grad_fn
 
 
+def make_fsdp_grad_fn(cfg: TrainerConfig, unet: nn.Module, layout) -> GradFn:
+    """`make_grad_fn` over FSDP shards: `grad_fn(shards, ...)` gathers the
+    whole model in the compute dtype (channels-last conv weights on the
+    card), binds it to `unet`, and returns the loss and the float32
+    gradients of the whole leaves (the gradient of a cast is the cast's
+    gradient, as in JAX)."""
+    episode_loss = make_episode_loss(cfg, unet)
+    dt = cfg.compute_dtype
+
+    def grad_fn(shards, vae, text_embed, micro, noise):
+        names = list(shards)
+        full = {}
+        with torch.no_grad():
+            for n in names:
+                t = layout.gather(n, shards[n].detach().to(dt))
+                if t.ndim == 4 and t.is_cuda:
+                    t = t.contiguous(memory_format=torch.channels_last)
+                full[n] = t.requires_grad_(True)
+        with bind_params(unet, full):
+            loss = episode_loss(vae, text_embed, micro, noise)
+            grads = torch.autograd.grad(loss, [full[n] for n in names], allow_unused=True)
+        return loss.detach(), {n: (torch.zeros(full[n].shape, dtype=torch.float32,
+                                               device=full[n].device)
+                                   if g is None else g.float())
+                               for n, g in zip(names, grads)}
+
+    return grad_fn
+
+
 def accumulate_grads(grad_fn: GradFn, train_params, extra, batch, noises, gas: int):
     """(loss, grads) of `grad_fn(train_params, *extra, micro, noise)`
     averaged over the `gas` leading micro-batch axis of `batch`."""
@@ -254,7 +293,7 @@ def accumulate_grads(grad_fn: GradFn, train_params, extra, batch, noises, gas: i
     return _true_div(loss_sum, float(gas)), acc
 
 
-def make_train_step(cfg: TrainerConfig, unet: nn.Module):
+def make_train_step(cfg: TrainerConfig, unet: nn.Module, *, data_group=None, layout=None):
     """Returns `step_fn(state, batch, rng, vae, text_embed) -> (state,
     metrics)`.  `unet` gives the model's structure: its own parameter
     values are not read (the state's masters are bound in their place).
@@ -272,20 +311,34 @@ def make_train_step(cfg: TrainerConfig, unet: nn.Module):
     others); `text_embed`: (1, 77, D).
 
     Metrics (device tensors): loss, the pre-clip grad_norm, and
-    apply_if_finite's notfinite_count and total_notfinite."""
-    return step_from_grad_fn(cfg, make_grad_fn(cfg, unet))
+    apply_if_finite's notfinite_count and total_notfinite.
+
+    `data_group`: the process group of the "data" axis (the batch holds
+    this rank's rows; `rng` draws this rank's images); `layout`: the FSDP
+    layout of a state from `parallel.mesh.init_state_fsdp` (its group is
+    the data group)."""
+    if layout is not None:
+        return step_from_grad_fn(cfg, make_fsdp_grad_fn(cfg, unet, layout),
+                                 data_group=layout.group, layout=layout)
+    return step_from_grad_fn(cfg, make_grad_fn(cfg, unet), data_group=data_group)
 
 
-def step_from_grad_fn(cfg: TrainerConfig, grad_fn: GradFn):
+def step_from_grad_fn(cfg: TrainerConfig, grad_fn: GradFn, *, data_group=None, layout=None):
     """`step_fn(state, batch, rng, *extra) -> (state, metrics)` around
     `grad_fn(state.params, *extra, micro, noise)`: the gradients averaged
-    over the micro-batches, the optimizer update, EMA and step count."""
-    tx = make_optimizer(cfg)
+    over the micro-batches (and over `data_group`; then cut to this rank's
+    shards under `layout`), the optimizer update, EMA and step count."""
+    tx = make_optimizer(cfg, layout=layout)
 
     def step_fn(state: TrainState, batch, rng, *extra) -> Tuple[TrainState, dict]:
         gas = batch["query"].shape[0]
         noises = [rng] * gas if isinstance(rng, torch.Generator) else rng
         loss, grads = accumulate_grads(grad_fn, state.params, extra, batch, noises, gas)
+        if data_group is not None:
+            loss = loss.clone()
+            mesh_lib.all_reduce_mean([loss] + list(grads.values()), data_group)
+        if layout is not None:
+            grads = layout.shard_tree(grads)
         gnorm = tx.update(grads, state.opt_state, state.params)
         del grads
         if state.ema is not None:

@@ -8,8 +8,9 @@ over 8 episodes and on every other benchmark; `--bsz 2`,
 `--mask_on_device`, `--dispatch_ahead 1` and `raw_images=False` equal the
 default run; `--use_original_imgsize` equals the JAX CLI's; the
 `_TEST_<bench>_<stamp>.log/log.txt` contract with its `[Batch: ...]`
-markers; the flag mapping onto the pipeline; the multi-device (A11) and
-int8 (A12) flags raise; without `--device` a host with no card raises.
+markers; the flag mapping onto the pipeline; the int8 (A12) flags raise,
+and so do the multi-device (A11) flags outside `torchrun`; without
+`--device` a host with no card raises.
 """
 
 import json
@@ -177,10 +178,14 @@ def test_parser_matches_jax_plus_device():
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--num_data_shards", "2"], "A11"), (["--num_shot_shards", "2"], "A11"),
+    pytest.param(["--num_data_shards", "2"], "torchrun", id="extra0-A11"),
+    pytest.param(["--num_shot_shards", "2"], "torchrun", id="extra1-A11"),
     (["--vae_impl", "int8"], "A12"), (["--unet_int8"], "A12")])
 def test_unported_flags_raise(workdir, extra, match):
-    with pytest.raises(NotImplementedError, match=match):
+    """The int8 flags (A12) raise; the multi-device flags (A11) outside a
+    `torchrun` launch raise, saying how to launch them."""
+    exc = RuntimeError if match == "torchrun" else NotImplementedError
+    with pytest.raises(exc, match=match):
         TE.main(_argv(workdir) + ["--device", "cpu"] + extra)
 
 

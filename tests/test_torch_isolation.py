@@ -1,8 +1,9 @@
-"""The port stands alone: `diffews_tpu_torch/`, `chip_smoke.py`, the
-kernel A/B tools (`tools/cuda_*.py`) and `tools/torch_train_capability.py`
-import neither `jax`, `flax`, `optax`, `safetensors` nor the JAX package,
-and the pipeline refuses to fall back to the CPU on a host without a CUDA
-device."""
+"""The port stands alone: `diffews_tpu_torch/` (`parallel/` included),
+`chip_smoke.py`, the kernel A/B tools (`tools/cuda_*.py`), the port's
+other tools (`tools/torch_*.py`) and the scripts the tests start as torch
+ranks (`tests/helpers/*_ranks.py`) import neither `jax`, `flax`, `optax`,
+`safetensors` nor the JAX package; the pipeline refuses to fall back to the
+CPU on a host without a CUDA device, and so does a "cuda" mesh."""
 
 import ast
 import os
@@ -21,8 +22,10 @@ ROOT = Path(__file__).resolve().parents[1]
 def _port_sources():
     files = (sorted((ROOT / "diffews_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
              + sorted((ROOT / "tools").glob("cuda_*.py"))
-             + [ROOT / "tools" / "torch_train_capability.py"])
+             + sorted((ROOT / "tools").glob("torch_*.py"))
+             + sorted((ROOT / "tests" / "helpers").glob("*_ranks.py")))
     assert len(files) > 10
+    assert ROOT / "diffews_tpu_torch" / "parallel" / "mesh.py" in files
     return files
 
 
@@ -57,6 +60,7 @@ def test_importing_the_port_loads_no_jax():
             "import diffews_tpu_torch.cli.export\n"
             "import diffews_tpu_torch.training.lora, diffews_tpu_torch.training.checkpoints\n"
             "import diffews_tpu_torch.cli.train, diffews_tpu_torch.cli.surgery\n"
+            "import diffews_tpu_torch.parallel.mesh\n"
             "bad = [m for m in sys.modules if any(m == t or m.startswith(t + '.')\n"
             "       for t in ('jax', 'flax', 'optax', 'safetensors', 'diffews_tpu'))]\n"
             "assert not bad, bad\n")
@@ -77,6 +81,19 @@ def test_pipeline_without_a_device_raises_on_a_cpu_host(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         DiffewsPipeline(bundle)
     DiffewsPipeline(bundle, device="cpu")  # an explicit CPU request runs
+
+
+def test_cuda_mesh_without_a_device_raises_on_a_cpu_host(monkeypatch):
+    """A "cuda" mesh needs NCCL on a card: without one it raises, before it
+    touches the process group, rather than building a gloo CPU mesh."""
+    from diffews_tpu_torch.parallel import mesh as M
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda: M.make_mesh("cuda", 1), lambda: M.make_shot_mesh("cuda", 2),
+                 lambda: M.maybe_initialize_distributed(True, "cuda")):
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            make()
+    assert not torch.distributed.is_initialized()
 
 
 def test_chip_smoke_fails_without_a_card():

@@ -150,9 +150,18 @@ def test_mask_on_device_path(pipes):
     np.testing.assert_array_equal(dev.mask, host.mask)
 
 
+class _TensorParallelMesh:
+    """A mesh with JAX's ("data", "model") axes: tensor parallelism."""
+    mesh_dim_names = ("data", "model")
+
+
 @pytest.mark.parametrize("kw", [{"vae_impl": "int8"}, {"unet_int8": True},
-                                {"mesh": object()}, {"shot_mesh": object()}])
+                                {"mesh": _TensorParallelMesh()},
+                                {"shot_mesh": _TensorParallelMesh()}])
 def test_unported_options_raise(kw):
+    """int8 (A12) and a "model" mesh axis (A11b) raise; the data and shot
+    meshes are held in `test_torch_parallel.py` and
+    `test_torch_shot_parallel.py`."""
     b = TC.random_pipeline_bundle(TCF.UNetConfig.tiny(), TCF.VAEConfig.tiny(), None,
                                   TCF.SchedulerConfig.diffews())
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -160,10 +160,12 @@ def _close_to_leaf_max(got, want, rel):
 @pytest.mark.parametrize("clip", [False, True])
 @pytest.mark.parametrize("mu_dtype", ["f32", "bf16"])
 def test_optimizer_matches_optax(mu_dtype, clip):
-    """Three steps.  f32 mu: params to 1e-6 relative, mu and nu to 1e-6 of
-    the leaf's max.  bf16 mu: XLA may keep b1·mu in f32 where torch rounds
-    it to bf16, so mu agrees to one bf16 ulp (2^-7 of the leaf's max) and
-    the params to 1e-2·lr per step."""
+    """Three steps: params to 1e-6 relative, mu and nu to 1e-6 of the
+    leaf's max, for either moment dtype.  A bf16 mu decays as optax's does
+    under jit: the Python b1 is weak-typed, so it is rounded to bf16
+    (0.8984375) before it multiplies the stored moment, and XLA keeps the
+    product and the sum in f32 until the result is stored; the port does
+    the same (`training/optim.py`), far inside one bf16 ulp (2^-7)."""
     jtx, ttx = _opt_pair(mu_dtype)
     params = _params(0)
     jp = {k: jnp.asarray(v) for k, v in params.items()}
@@ -180,15 +182,13 @@ def test_optimizer_matches_optax(mu_dtype, clip):
         np.testing.assert_allclose(float(tnorm), gnorm, rtol=1e-6)
         inner = js.inner_state[1][0]  # chain(clip, adamw) -> adamw's scale_by_adam
         for k in params:
+            np.testing.assert_allclose(tp[k].numpy(), np.asarray(jp[k]), rtol=1e-6,
+                                       atol=1e-9)
             if mu_dtype == "f32":
-                np.testing.assert_allclose(tp[k].numpy(), np.asarray(jp[k]), rtol=1e-6,
-                                           atol=1e-9)
                 _close_to_leaf_max(ts.mu[k].numpy(), inner.mu[k], 1e-6)
             elif k != "unused":
                 assert ts.mu[k].dtype == torch.bfloat16
-                np.testing.assert_allclose(tp[k].numpy(), np.asarray(jp[k]), rtol=0,
-                                           atol=1e-2 * 1e-2 * (i + 1))
-                _close_to_leaf_max(ts.mu[k].float().numpy(), inner.mu[k], 2 ** -7)
+                _close_to_leaf_max(ts.mu[k].float().numpy(), inner.mu[k], 1e-6)
             if k != "unused":
                 _close_to_leaf_max(ts.nu[k].numpy(), inner.nu[k], 1e-6)
         assert int(ts.count) == int(inner.count) == i + 1
