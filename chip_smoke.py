@@ -66,7 +66,24 @@ Phases, each of which fails the run (non-zero exit) on any error:
      5-shot episode with two padded shots against the 3-shot episode,
      under "xla" and "fused"; the f32 (TF32 off) fused-vs-xla VAE encode
      and decode;
- 11. eval: the eval harness (`diffews_tpu_torch.cli.evaluate`) on a
+ 11. int8: W8A8 (`vae_impl="int8"`, `unet_int8`) at the same widths: (a)
+     the int8 kernels (`quantize_s8`, `conv2d_int8`) against their plain
+     versions bit for bit at every int8 conv shape of the 1-shot b4
+     episode (recorded from it: encoder B = 12, decoder B = 4, the three
+     stride-2 downsamples, Cout 3 and 8), bf16 and f32, static and dynamic
+     scales, repeats bit-identical, with kernel / plain / cuDNN bf16 conv
+     times, TOP/s and the share of the bound; (b) the pipeline's int8
+     weights (56 convs, 128 linears) quantized on the card equal the CPU's
+     bit for bit; (c) the bf16 episodes under "int8" and "int8" +
+     `unet_int8` with exact launches, beside "xla" in turns (walls, busy,
+     idle, masks against "xla"'s); (d) `precompute_supports` +
+     `predict_cached` under both (exact launches, a batch-1 cache equal to
+     its 4 copies), and in f32 (TF32 off) under `unet_int8` cached against
+     joint within the cached contract with the joint run's int8 codes fed
+     forward past quantizer ties; (e) tiny f32 episodes card against CPU
+     (the CPU's codes fed forward); (f) the `--vae_impl int8` artifact
+     exported on the card equal to `predict` bit for bit;
+ 12. eval: the eval harness (`diffews_tpu_torch.cli.evaluate`) on a
      synthetic COCO tree (`tests/helpers/synthetic_data.make_coco`): the CLI
      from a tiny checkpoint written from the port's seeded modules
      (`tests/helpers/port_checkpoint.py`) on the card and on the CPU, f32
@@ -82,7 +99,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
      wall on the same batches, the loader's seconds per batch,
      `predict_async`'s host time, and one profiled run's device busy and
      idle share;
- 12. cached: cached-support serving at the same widths, bf16, 512px, under
+ 13. cached: cached-support serving at the same widths, bf16, 512px, under
      `vae_impl` "xla" and "auto": `precompute_supports` for a 1-shot and a
      5-shot (two padded) support set (33 flash launches each) and
      `predict_cached` at batch 4 and 1 (18 flash launches), each with exact
@@ -90,7 +107,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
      bf16 a repeat is bit-identical, padded shots' content changes no bit
      and a batch-1 cache equals its four copies; in f32 (TF32 off) cached
      equals the joint episode within one uint8 count;
- 13. serve: the serving daemon (`diffews_tpu_torch.cli.serve`) and the AOT
+ 14. serve: the serving daemon (`diffews_tpu_torch.cli.serve`) and the AOT
      serving artifact (`diffews_tpu_torch.serving`): (a) tiny f32 daemons
      from a port-written checkpoint on the card and on the CPU under
      `vae_impl` "xla" and "auto" (one-off, supports.add + cached, four
@@ -111,14 +128,14 @@ Phases, each of which fails the run (non-zero exit) on any error:
      94 + 94 launches per call, equal to `predict` bit for bit, served by a
      daemon in artifact mode (supports.add 400), its wall against
      `predict`'s in turns;
- 14. train: the training step at the same widths (bf16 compute, f32
+ 15. train: the training step at the same widths (bf16 compute, f32
      masters, remat, AdamW): launches per micro-step (65 flash forward, 32
      dq, 32 dkv, 109 + 109 GroupNorm), step times at gas 1 and 4, peak
      memory, a profile (and the micro-step's forward and backward flash
      ms), the f32 kernel path against the dense path,
      padded-shot invariance of loss and gradients, and the attn-mask
      variant's decaying `conv_in_ref`;
- 15. train_cli: the training CLI (`diffews_tpu_torch.cli.train`) on a
+ 16. train_cli: the training CLI (`diffews_tpu_torch.cli.train`) on a
      synthetic COCO tree: (a) tiny f32 (TF32 off) runs from a checkpoint
      written by the port's savers, the card against the CPU (losses per
      step from `--metrics_jsonl` within rtol 1e-4, checkpoint-4's weights
@@ -137,7 +154,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
      and different from the base exactly at the adapted sites; (d)
      `tools/torch_train_capability.py` at the CI-bound 60 steps / 200 VAE
      steps / 16 episodes under its pass rule;
- 16. multi: multi-device serving and training (`diffews_tpu_torch.parallel`)
+ 17. multi: multi-device serving and training (`diffews_tpu_torch.parallel`)
      on the one card, each group of ranks started by `torchrun` (any
      rank's failure fails the run): (a) 2 ranks over gloo (its all_reduce
      takes CUDA tensors; NCCL refuses two ranks on one device), a
@@ -915,18 +932,21 @@ def _uint8_close(a, b, what):
 
 
 def _launch_counts():
-    from diffews_tpu_torch.ops import downsample, fused_resnet, groupnorm
+    from diffews_tpu_torch.ops import downsample, fused_resnet, groupnorm, quant
     from diffews_tpu_torch.ops.flash_attention import flash_attention
 
     return {"flash_attention_fwd": flash_attention.launches,
             "gn_stats": groupnorm.gn_stats_kernel.launches,
             "gn_apply": groupnorm.gn_apply_kernel.launches,
             "fused_gn_silu_conv3x3": fused_resnet.gn_silu_conv3x3.launches,
-            "downsample_conv2x": downsample.downsample_conv2x.launches}
+            "downsample_conv2x": downsample.downsample_conv2x.launches,
+            "quantize_s8": quant.quantize_s8.launches,
+            "conv2d_int8": quant.conv2d_int8.launches,
+            "int_mm": quant.linear_int8.launches}
 
 
 def _zero_counts():
-    from diffews_tpu_torch.ops import downsample, fused_resnet, groupnorm
+    from diffews_tpu_torch.ops import downsample, fused_resnet, groupnorm, quant
     from diffews_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bwd
 
     flash_attention.launches = 0
@@ -934,14 +954,16 @@ def _zero_counts():
     groupnorm.gn_stats_kernel.launches = groupnorm.gn_apply_kernel.launches = 0
     fused_resnet.gn_silu_conv3x3.launches = 0
     downsample.downsample_conv2x.launches = 0
+    quant.quantize_s8.launches = quant.conv2d_int8.launches = quant.linear_int8.launches = 0
 
 
 def _expect(flash, gn, fused):
     """Launch counts of a pipeline path: `gn` of each GroupNorm kernel, and
     no downsample launch (the op is on no pipeline path, as in the JAX
-    package)."""
+    package) and no int8 launch (W8A8 is opt-in, phase int8)."""
     return {"flash_attention_fwd": flash, "gn_stats": gn, "gn_apply": gn,
-            "fused_gn_silu_conv3x3": fused, "downsample_conv2x": 0}
+            "fused_gn_silu_conv3x3": fused, "downsample_conv2x": 0, "quantize_s8": 0,
+            "conv2d_int8": 0, "int_mm": 0}
 
 
 def phase_tiny():
@@ -1172,6 +1194,10 @@ def _kernel_class(name: str) -> str:
         return "fused_gn_silu_conv3x3 (B5)"
     if "down_wgmma_kernel" in n or "down_f32_kernel" in n:
         return "downsample_conv2x (B6)"
+    if "conv2d_int8_kernel" in n:
+        return "conv2d_int8 (A12)"
+    if "quantize_s8_kernel" in n:
+        return "quantize_s8 (A12)"
     if "sum_partials" in n:
         return "statistics partial sums (B4a, B5)"
     if "fprop" in n or "conv" in n or "cudnn" in n:
@@ -1477,6 +1503,411 @@ def phase_full(card):
         ("episode_1shot_b4", "one_shot_b4"), ("episode_1shot_b4_fused", "one_shot_b4_fused"),
         ("episode_1shot_b4_mixed", "one_shot_b4_mixed"),
         ("episode_1shot_b1_auto", "one_shot_b1_auto"))}
+
+
+# ---------------------------------------------------------------------------
+# phase int8: W8A8 (vae_impl="int8", unet_int8)
+# ---------------------------------------------------------------------------
+
+PEAK_INT8 = 1979e12  # H100 SXM dense int8 tensor-core OP/s
+# (B, H, W, Cin, Cout, stride): the encoder's first resnet convs, 1-shot b4
+INT8_MAIN_SHAPE = (12, 512, 512, 128, 128, 1)
+
+
+def _expect_int8(flash, gn, convs, linears):
+    """Launch counts of an int8 path: a quantize before each int8 conv and
+    each int8 linear, a `torch._int_mm` in each linear."""
+    return {**_expect(flash, gn, 0), "quantize_s8": convs + linears, "conv2d_int8": convs,
+            "int_mm": linears}
+
+
+# W8A8 launches.  The SD VAE has 56 int8 convs (3x3, Cin >= 32): 24 in the
+# encoder (16 resnet convs, 3 downsamples, 4 in the mid block, conv_out) and
+# 32 in the decoder (4 mid, 24 resnet convs, 3 upsamplers, conv_out); the
+# SD-2.1 UNet 128 int8 linears (8 in each of its 16 transformers: attn1
+# q/k/v/out, the two feed-forward projections, proj_in, proj_out).  The
+# graph is "xla"'s, so flash and GroupNorm launch as under "xla".  A capture
+# runs the encoder (2 images) and the joint UNet; a cached predict the
+# encoder, the query-only UNet and the decoder.
+INT8_LAUNCHES = {"vae": _expect_int8(34, 94, 56, 0), "vae_unet": _expect_int8(34, 94, 56, 128),
+                 "capture": _expect_int8(33, 65, 24, 128),
+                 "cached": _expect_int8(18, 94, 56, 128)}
+
+
+def _int8_conv_inputs(pipe, q, sup, m):
+    """One input per distinct int8 conv call of the episode, recorded from
+    the episode: {(B, H, W, Cin, Cout, stride, pads): (module, x)}, and the
+    number of int8 conv calls."""
+    from diffews_tpu_torch.ops import quant as Q
+
+    seen, calls = {}, [0]
+
+    def pre(mod, args, kwargs):
+        x = args[0]
+        pad = kwargs.get("padding", args[1] if len(args) > 1 else None)
+        pads = Q._pads(mod.padding if pad is None else pad)
+        key = tuple(x.shape) + (mod.out_channels, mod.stride, pads)
+        seen.setdefault(key, (mod, x.detach()))
+        calls[0] += 1
+
+    hooks = [mod.register_forward_pre_hook(pre, with_kwargs=True)
+             for mod in pipe.vae.modules() if isinstance(mod, Q.Int8Conv2d)]
+    try:
+        pipe.predict(q, sup, m)
+    finally:
+        for h in hooks:
+            h.remove()
+    return seen, calls[0]
+
+
+def _int8_conv_rows(shapes):
+    """(a) At every recorded shape, through the wrappers the int8 modules
+    call (`quant.quantize_s8`, `quant.conv2d_int8`: scale selection, the
+    custom ops, the padding as the episode passes it): the quantize against
+    its plain version (the bf16 input and its f32 copy), the conv against
+    `conv2d_int8_reference` of the plain codes, writing bf16 and f32, static
+    and dynamic scales, bit for bit, and a repeat bit-identical; times
+    (bf16, static) of the kernels alone (their launchers), of cuDNN's bf16
+    conv at the shape, and of the plain versions at the main shape."""
+    import torch
+    import torch.nn.functional as F
+    from diffews_tpu_torch.ops import quant as Q
+
+    rows = []
+    for key, (mod, x) in shapes.items():
+        b, h, w, cin, cout, stride, pads = key
+        pt, pb, pl, pr = pads
+        padding = ((pt, pb), (pl, pr))
+        for scale in ("static", "dynamic"):
+            s_arg = mod.s_a if scale == "static" else None
+            s = mod.s_a if scale == "static" else Q.dynamic_s_a(x)
+            xq_ref = Q.quantize_s8_reference(x, s)
+            check(torch.equal(Q.quantize_s8(x, s), xq_ref),
+                  f"int8 quantize {key} {scale} bf16 differs")
+            check(torch.equal(Q.quantize_s8(x.float(), s), xq_ref),
+                  f"int8 quantize {key} {scale} f32 differs")
+            # the plain version rounds once to the output dtype from f32
+            want32 = Q.conv2d_int8_reference(xq_ref, mod.weight_q, mod.w_scale, s, mod.bias,
+                                             stride, padding, torch.float32)
+            for xin in (x, x.float()):
+                want = want32.to(xin.dtype)
+                conv = lambda: Q.conv2d_int8(xin, mod.weight_q, mod.w_scale, mod.bias,
+                                             s_a=s_arg, stride=stride, padding=padding)
+                y = conv()
+                check(y.dtype == xin.dtype and torch.equal(y, want),
+                      f"int8 conv {key} {scale} {xin.dtype}: max |Δ| "
+                      f"{(y.float() - want.float()).abs().max().item()}")
+                check(torch.equal(y, conv()), f"int8 conv {key} {scale} {xin.dtype}: a "
+                                              "repeat differs")
+            del want32, want, y
+        s = mod.s_a
+        xq = Q._quant_launch(x, s)
+        conv = lambda: Q._conv_launch(xq, mod.weight_q, mod.w_scale, s, mod.bias, stride,
+                                      pads, torch.bfloat16)
+        y = conv()
+        ho, wo = y.shape[1], y.shape[2]
+        ms = cuda_ms(conv, reps=3, warmup=1, inner=3)
+        q_ms = cuda_ms(lambda: Q._quant_launch(x, s), reps=3, warmup=1, inner=3)
+        # cuDNN's bf16 conv at the shape (channels-last, dequantized weights)
+        wc = (mod.weight_q.float() * mod.w_scale[:, None, None, None]).to(torch.bfloat16)
+        wc = wc.permute(0, 3, 1, 2)
+        xc, cpad = x.permute(0, 3, 1, 2), (pt, pl)
+        if (pt, pl) != (pb, pr):  # the encoder's downsample: pad first, as `layers.conv2d`
+            xc = F.pad(xc, (pl, pr, pt, pb)).contiguous(memory_format=torch.channels_last)
+            cpad = 0
+        bc = mod.bias.to(torch.bfloat16)
+        lib_ms = cuda_ms(lambda: F.conv2d(xc, wc, bc, stride=stride, padding=cpad), reps=3,
+                         warmup=1, inner=3)
+        ops = 2.0 * b * ho * wo * cout * 9 * cin
+        nbytes = b * h * w * cin + cout * 9 * cin + b * ho * wo * cout * 2 + cout * 8
+        bound_ops, bound_bytes = ops / PEAK_INT8 * 1e3, nbytes / MEM_BW * 1e3
+        q_bytes = b * h * w * cin * 3
+        row = {"shape": [b, h, w, cin, cout], "stride": stride, "padding": list(pads),
+               "ms": ms, "tops": ops / (ms * 1e-3) / 1e12,
+               "bound_ms": max(bound_ops, bound_bytes),
+               "bound_by": "operations" if bound_ops >= bound_bytes else "bytes",
+               "share_of_bound": max(bound_ops, bound_bytes) / ms, "cudnn_bf16_ms": lib_ms,
+               "quantize_ms": q_ms, "quantize_bound_ms": q_bytes / MEM_BW * 1e3,
+               "max_abs_err": 0.0, "bit_identical": True}
+        if (b, h, w, cin, cout, stride) == INT8_MAIN_SHAPE:
+            row["plain_ms"] = cuda_ms(lambda: Q.conv2d_int8_reference(
+                xq, mod.weight_q, mod.w_scale, s, mod.bias, stride, pads, torch.bfloat16),
+                reps=2, warmup=1)
+            row["quantize_plain_ms"] = cuda_ms(lambda: Q.quantize_s8_reference(x, s), reps=2,
+                                               warmup=1)
+        rows.append(row)
+        del xq, y, wc, xc
+    return rows
+
+
+def _forced_tiny(pipes, call):
+    """`call(pipe)` on the CPU recording each int8 site's codes, then on the
+    card with the CPU's codes fed forward past each tie (one code at a tie
+    moves a tiny random model's output by many uint8 counts, see
+    `tests/helpers/int8_ties.py`): (CPU out, forced card out, per-site
+    (share of codes that differ, max |diff|), the card run's launches)."""
+    import torch
+    from helpers import int8_force
+
+    codes, stats = [], []
+    with int8_force.recording(codes):
+        cpu = call(pipes["cpu"])
+    _zero_counts()
+    with int8_force.force(codes, stats):
+        gpu = call(pipes["cuda"])
+        torch.cuda.synchronize()
+    return cpu, gpu, stats, _launch_counts()
+
+
+def _cached_vs_joint_forced(pipe, q2, sup, m):
+    """f32 `unet_int8`: the cached path (a batch-1 cache of `sup`, `m`,
+    under the 2 queries `q2`) against the joint episode of the 2 queries
+    with the support set repeated, with the joint run's codes fed into the
+    cached runs past each tie, row for row: the joint UNet's rows are [2
+    support rows, 2 query rows]; the capture's [the support row, a zero
+    dummy query] takes the joint's first support row (its dummy row keeps
+    its own codes), the cached predict's [2 query rows] the joint's query
+    rows.  Returns (joint, forced cached, unforced cached, tie stats)."""
+    from helpers import int8_force
+
+    joint_codes, stats = {}, []
+
+    def record(own, name, x, s):
+        joint_codes[name] = own(x, s)
+        return joint_codes[name]
+
+    def capture(own, name, x, s):
+        mine = own(x, s)
+        want = mine.clone()
+        want[:1] = joint_codes[name][:1]
+        stats.append(int8_force.tie_stats(mine[:1], want[:1]))
+        return want
+
+    def cached(own, name, x, s):
+        mine, want = own(x, s), joint_codes[name][2:]
+        stats.append(int8_force.tie_stats(mine, want))
+        return want
+
+    sup2, m2 = np.repeat(sup, 2, 0), np.repeat(m, 2, 0)
+    with int8_force.by_site(pipe.unet, record):
+        joint = pipe.predict(q2, sup2, m2, r_threshold=0.25)
+    with int8_force.by_site(pipe.unet, capture):
+        cache = pipe.precompute_supports(sup, m)
+    with int8_force.by_site(pipe.unet, cached):
+        got = pipe.predict_cached(q2, cache, r_threshold=0.25)
+    free = pipe.predict_cached(q2, pipe.precompute_supports(sup, m), r_threshold=0.25)
+    check(len(stats) == 2 * len(joint_codes), f"{len(stats)} forced sites, "
+                                              f"{len(joint_codes)} joint sites")
+    return joint, got, free, stats
+
+
+def phase_int8(card):
+    import torch
+    from diffews_tpu_torch.checkpoint import random_pipeline_bundle
+    from diffews_tpu_torch.cli import export
+    from diffews_tpu_torch.configs import (CLIPTextConfig, SchedulerConfig,
+                                           UNetConfig, VAEConfig)
+    from diffews_tpu_torch.ops import quant as Q
+    from diffews_tpu_torch.pipeline import DiffewsPipeline
+    from diffews_tpu_torch import serving
+    import tempfile
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    t0 = time.time()
+    res = {"card": card}
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    q, sup, m = _episode(4, 1, 512, seed=2)  # phase full's 1-shot b4 episode
+
+    # (b) weights quantized on the card equal the same weights quantized on
+    # the CPU: the pipeline's int8 VAE convs and UNet linears against the
+    # CPU quantization of the seeded bf16 weights
+    bundle = _full_bundle()
+    cpu_w = {("vae", n): c.weight.detach().to(torch.bfloat16).cpu()
+             for n, c in Q.conv_sites(bundle.vae).items()}
+    cpu_w.update({("unet", n): c.weight.detach().to(torch.bfloat16).cpu()
+                  for n, c in Q.linear_sites(bundle.unet).items()})
+    t1 = time.time()
+    both = DiffewsPipeline(bundle, device="cuda", compute_dtype=torch.bfloat16,
+                           vae_impl="int8", unet_int8=True)
+    torch.cuda.synchronize()
+    res["setup_s_int8_vae_unet"] = time.time() - t1
+    mods = {("vae", n): mm for n, mm in both.vae.named_modules()
+            if isinstance(mm, Q.Int8Conv2d)}
+    mods.update({("unet", n): mm for n, mm in both.unet.named_modules()
+                 if isinstance(mm, Q.Int8Linear)})
+    check(set(mods) == set(cpu_w) and len([k for k in mods if k[0] == "vae"]) == 56
+          and len([k for k in mods if k[0] == "unet"]) == 128,
+          f"int8 sites: {len(mods)} quantized, {len(cpu_w)} eligible (56 + 128)")
+    for key, w in cpu_w.items():
+        w8, s_w = Q.quantize_weight(w.permute(0, 2, 3, 1) if w.ndim == 4 else w,
+                                    (1, 2, 3) if w.ndim == 4 else (1,))
+        check(torch.equal(mods[key].weight_q.cpu(), w8)
+              and torch.equal(mods[key].w_scale.cpu(), s_w),
+              f"int8 weights of {key} quantized on the card differ from the CPU's")
+    res["weights_card_equal_cpu"] = {"sites": len(cpu_w), "bit_identical": True}
+    del bundle, cpu_w
+    emit({"phase": "int8_weights_card_vs_cpu", **res["weights_card_equal_cpu"]})
+
+    # (a) the kernels against their plain versions at every int8 conv shape
+    # of the episode, recorded from it
+    shapes, n_calls = _int8_conv_inputs(both, q, sup, m)
+    check(n_calls == 56, f"the int8 episode made {n_calls} int8 conv calls (expected 56)")
+    rows = _int8_conv_rows(shapes)
+    del shapes
+    torch.cuda.empty_cache()
+    main = [r for r in rows if tuple(r["shape"]) + (r["stride"],) == INT8_MAIN_SHAPE][0]
+    emit({"phase": "int8_kernels", "shapes": len(rows), "main": main, "card": card})
+    for r in rows:
+        emit({"phase": "int8_conv_row", **r})
+
+    # (c) the full-width episodes: vae "int8", "int8" + unet_int8, and the
+    # bf16 "xla" episode beside them
+    t1 = time.time()
+    vae8 = DiffewsPipeline(_full_bundle(), device="cuda", compute_dtype=torch.bfloat16,
+                           vae_impl="int8")
+    res["setup_s_int8_vae"] = time.time() - t1
+    xla = DiffewsPipeline(_full_bundle(), device="cuda", compute_dtype=torch.bfloat16)
+    runs = {"xla": (xla, EPISODE_LAUNCHES["xla"]), "int8": (vae8, INT8_LAUNCHES["vae"]),
+            "int8_unet": (both, INT8_LAUNCHES["vae_unet"])}
+    outs, eps = {}, {}
+    for label, (pipe, expected) in runs.items():
+        outs[label], eps[label] = _timed_run(
+            lambda: pipe.predict(q, sup, m, r_threshold=0.25), _same_seg, expected,
+            f"episode_1shot_b4_{label}", card)
+    for label in ("int8", "int8_unet"):
+        d = _diff_stats(outs[label].seg_colored, outs["xla"].seg_colored)
+        eps[label].update({"mask_frac_differ_vs_xla": float((outs[label].mask
+                                                             != outs["xla"].mask).mean()),
+                           "seg_max_uint8_diff_vs_xla": d[0], "seg_frac_differ_vs_xla": d[1]})
+    check(all(np.isfinite(o.seg_colored).all() and o.seg_colored.shape == (4, 512, 512, 3)
+              for o in outs.values()), "int8 episode outputs")
+    # in turns: walls of each, three rounds
+    turns = {k: [] for k in runs}
+    for rnd in range(3):
+        for label in (list(runs) if rnd % 2 == 0 else list(runs)[::-1]):
+            torch.cuda.synchronize()
+            t1 = time.time()
+            runs[label][0].predict(q, sup, m, r_threshold=0.25)
+            torch.cuda.synchronize()
+            turns[label].append(time.time() - t1)
+    res["episodes"] = {k: {kk: vv for kk, vv in v.items() if kk != "profile"}
+                       for k, v in eps.items()}
+    res["episode_busy"] = {k: {"device_busy_ms": v["profile"].get("device_busy_ms"),
+                               "device_idle_share": v["profile"].get("device_idle_share"),
+                               "device_ms_by_class": v["profile"].get("device_ms_by_class"),
+                               "wall_s_in_turns": turns[k],
+                               "wall_s_in_turns_median": statistics.median(turns[k])}
+                           for k, v in eps.items()}
+    emit({"phase": "int8_full_1shot_b4_512px_bf16", **res["episodes"], "card": card})
+    emit({"phase": "int8_full_busy_in_turns", **res["episode_busy"], "card": card})
+    del vae8, xla, outs
+    torch.cuda.empty_cache()
+
+    # (d) the cached path under unet_int8 (and the int8 VAE)
+    cache1, cap = _timed_run(lambda: both.precompute_supports(sup[:1], m[:1]), _same_cache,
+                             INT8_LAUNCHES["capture"], "int8_precompute_supports_1shot_b1", card)
+    out4, cached = _timed_run(lambda: both.predict_cached(q, cache1, r_threshold=0.25),
+                              _same_seg, INT8_LAUNCHES["cached"],
+                              "int8_predict_cached_1shot_b4", card)
+    copies = both.predict_cached(q, _repeat_cache(cache1, 4), r_threshold=0.25)
+    check(_same_seg(copies, out4), "int8: a batch-1 cache under 4 queries differs from the "
+                                   "batch-4 cache of 4 copies")
+    res["cached"] = {"precompute_supports_1shot_b1": {k: v for k, v in cap.items()
+                                                      if k != "profile"},
+                     "predict_cached_1shot_b4": {k: v for k, v in cached.items()
+                                                 if k != "profile"},
+                     "bf16_batch1_cache_equals_4_copies": True}
+    del both, cache1, copies
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    p32 = DiffewsPipeline(_full_bundle(), device="cuda", compute_dtype=torch.float32,
+                          unet_int8=True)
+    j32, c32, free, stats = _cached_vs_joint_forced(p32, q[:2], sup[:1], m[:1])
+    check(max(d for _, d in stats) <= 1 and max(sh for sh, _ in stats) <= 1e-3,
+          f"int8 f32 cached vs joint: codes differ beyond ties: {stats}")
+    mx, frac = _uint8_close(c32.seg_colored, j32.seg_colored,
+                            "int8 f32 cached vs joint, the joint codes fed forward")
+    flips = float((c32.mask != j32.mask).mean())
+    check(flips < 0.01, f"int8 f32 cached vs joint: {flips:.4f} of mask pixels flip")
+    fmx, ffrac = _diff_stats(free.seg_colored, j32.seg_colored)
+    res["cached"]["f32_cached_vs_joint_unet_int8"] = {
+        "forced_max_uint8_diff": mx, "forced_frac_differ": frac, "forced_mask_flips": flips,
+        "sites": len(stats), "sites_with_ties": sum(sh > 0 for sh, _ in stats),
+        "max_tie_share": max(sh for sh, _ in stats), "unforced_max_uint8_diff": fmx,
+        "unforced_frac_differ": ffrac,
+        "unforced_mask_flips": float((free.mask != j32.mask).mean())}
+    emit({"phase": "int8_cached_512px", **res["cached"], "card": card})
+    del p32
+    torch.cuda.empty_cache()
+
+    # (e) tiny f32 int8 episodes, the card against the CPU
+    cfgs = (UNetConfig.tiny(), VAEConfig.tiny(), CLIPTextConfig.tiny(),
+            SchedulerConfig.diffews())
+    tiny = {}
+    for label, kw in (("vae_int8", {"vae_impl": "int8"}), ("unet_int8", {"unet_int8": True}),
+                      ("unet_int8_attn_mask", {"unet_int8": True, "attn_mask_variant": True}),
+                      ("vae_int8_unet_int8", {"vae_impl": "int8", "unet_int8": True})):
+        pipes = {dev: DiffewsPipeline(random_pipeline_bundle(*cfgs, seed=0), device=dev, **kw)
+                 for dev in ("cpu", "cuda")}
+        tq, tsup, tm = _episode(2, 3, 32, seed=1)
+        sm = np.array([[True, True, False], [True, True, True]])
+        run = lambda p: p.predict(tq, tsup, tm, shot_mask=sm, r_threshold=0.25)
+        free = run(pipes["cuda"])
+        cpu, gpu, stats, counts = _forced_tiny(pipes, run)
+        what = f"tiny int8 card vs CPU ({label})"
+        check(counts["quantize_s8"] > 0 and (counts["conv2d_int8"] > 0) == ("vae_impl" in kw)
+              and (counts["int_mm"] > 0) == ("unet_int8" in kw), f"{what}: launches {counts}")
+        check(max(d for _, d in stats) <= 1 and max(s for s, _ in stats) <= 1e-3,
+              f"{what}: codes differ beyond ties: {stats}")
+        mx, frac = _uint8_close(gpu.seg_colored, cpu.seg_colored, what + ", forced")
+        fmx, ffrac = _diff_stats(free.seg_colored, cpu.seg_colored)
+        first = next((i for i, (s, _) in enumerate(stats) if s > 0), None)
+        tiny[label] = {"forced_max_uint8_diff": mx, "forced_frac_differ": frac,
+                       "sites": len(stats), "sites_with_ties": sum(s > 0 for s, _ in stats),
+                       "max_tie_share": max(s for s, _ in stats), "first_tie_site": first,
+                       "unforced_max_uint8_diff": fmx, "unforced_frac_differ": ffrac,
+                       "unforced_mask_flips": float((free.mask != cpu.mask).mean()),
+                       "kernel_launches": counts}
+    res["tiny"] = tiny
+    emit({"phase": "int8_tiny_card_vs_cpu", "dtype": "float32", "tf32": False, **tiny})
+
+    # (f) the --vae_impl int8 artifact exported on the card equals the int8
+    # predict bit for bit
+    from helpers.port_checkpoint import write_checkpoint
+
+    tmp = tempfile.mkdtemp(prefix="int8_art_")
+    try:
+        ckpt = write_checkpoint(os.path.join(tmp, "ckpt"), *cfgs, seed=0)
+        out = export.main(["--checkpoint", ckpt, "--out", os.path.join(tmp, "art"), "--bsz",
+                           "2", "--nshot", "1", "--img-size", "32", "--vae_impl", "int8"])
+        art = serving.load(out)
+        pipe = DiffewsPipeline.from_pretrained(ckpt, device="cuda", vae_impl="int8")
+        tq, tsup, tm = _episode(2, 1, 32, seed=3)
+        _zero_counts()
+        got = art(tq, tsup, tm).cpu().numpy()
+        counts = _launch_counts()
+        n_conv = sum(isinstance(mm, Q.Int8Conv2d) for mm in pipe.vae.modules())
+        check(counts["conv2d_int8"] == n_conv and counts["quantize_s8"] == n_conv,
+              f"the int8 artifact launched {counts} ({n_conv} int8 convs)")
+        check(np.array_equal(got, pipe.predict(tq, tsup, tm).seg_colored),
+              "the int8 artifact exported on the card differs from the int8 predict")
+        res["artifact_tiny_f32"] = {"equals_predict": True, "kernel_launches": counts}
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "int8_artifact_card", **res["artifact_tiny_f32"]})
+    res["rows"] = rows
+    res["seconds"] = time.time() - t0
+    emit({"phase": "int8", "seconds": res["seconds"]})
+    RESULTS["int8"] = res
+    launches = {"episode_1shot_b4_int8": eps["int8"]["kernel_launches"],
+                "episode_1shot_b4_int8_unet_int8": eps["int8_unet"]["kernel_launches"],
+                "int8_precompute_supports_1shot_b1": cap["kernel_launches"],
+                "int8_predict_cached_1shot_b4": cached["kernel_launches"]}
+    return rows, launches
 
 
 # launches of cached-support serving by (`vae_impl`, call).  A capture runs
@@ -2300,18 +2731,12 @@ def phase_train(card):
     state, m = step(state, b1, gen, vae, text_embed)
     torch.cuda.synchronize()
     counts = _launch_counts()
-    launches = {"flash_attention_fwd": counts["flash_attention_fwd"],
-                "flash_attention_bwd_dq": flash_attention_bwd.dq_launches,
-                "flash_attention_bwd_dkv": flash_attention_bwd.dkv_launches,
-                "gn_stats": counts["gn_stats"], "gn_apply": counts["gn_apply"],
-                "fused_gn_silu_conv3x3": counts["fused_gn_silu_conv3x3"],
-                "downsample_conv2x": counts["downsample_conv2x"]}
-    check(launches == {"flash_attention_fwd": 65, "flash_attention_bwd_dq": 32,
-                       "flash_attention_bwd_dkv": 32, "gn_stats": 109, "gn_apply": 109,
-                       "fused_gn_silu_conv3x3": 0, "downsample_conv2x": 0},
+    launches = {**counts, "flash_attention_bwd_dq": flash_attention_bwd.dq_launches,
+                "flash_attention_bwd_dkv": flash_attention_bwd.dkv_launches}
+    check(launches == TRAIN_CLI_LAUNCHES,
           f"a 1-shot micro-step launched {launches}; expected 65 flash forward (32 + 32 "
-          "recomputed under remat + 1 VAE encode), 32 dq, 32 dkv, and 109 GroupNorm "
-          "stats and apply (44 + 44 recomputed + 21 in the VAE encode)")
+          "recomputed under remat + 1 VAE encode), 32 dq, 32 dkv, 109 GroupNorm stats and "
+          "apply (44 + 44 recomputed + 21 in the VAE encode), and no other kernel")
     before = snap()
     torch.cuda.reset_peak_memory_stats()
     synced, losses = [], []
@@ -2552,7 +2977,8 @@ class _CountedSteps:
 
 TRAIN_CLI_LAUNCHES = {"flash_attention_fwd": 65, "flash_attention_bwd_dq": 32,
                       "flash_attention_bwd_dkv": 32, "gn_stats": 109, "gn_apply": 109,
-                      "fused_gn_silu_conv3x3": 0, "downsample_conv2x": 0}
+                      "fused_gn_silu_conv3x3": 0, "downsample_conv2x": 0, "quantize_s8": 0,
+                      "conv2d_int8": 0, "int_mm": 0}
 
 
 def _train_cli_tiny(tmp, data):
@@ -3332,13 +3758,14 @@ def phase_multi(card, work):
 
 def kernel_record(rows, bwd_rows, norm_rows, fused_rows, down_rows, episode_launches,
                   train_launches, cached_launches, down_launches, eval_launches,
-                  serve_launches, train_cli_launches, multi_launches):
+                  serve_launches, train_cli_launches, multi_launches, int8_rows, int8_launches):
     """One entry per kernel.  `launches` is the count on the path of the
     slice that ported it (the training micro-step for the flash kernels,
     the default episode for the GroupNorm kernels, the `vae_impl="fused"`
     episode for the fused conv, the entry point `downsample_conv2x` on the
     encoder's three B = 12 inputs for the downsample kernel, which no
-    pipeline path calls); `launches_by_path` gives every path's."""
+    pipeline path calls; the `vae_impl="int8"` episode for the int8
+    kernels); `launches_by_path` gives every path's."""
     main = [r for r in rows if r["shape"] == MAIN_SHAPE and r["dtype"] == "bfloat16"][0]
     bmain = [r for r in bwd_rows
              if r["shape"] == BWD_MAIN_SHAPE and r["dtype"] == "bfloat16"][0]
@@ -3348,8 +3775,8 @@ def kernel_record(rows, bwd_rows, norm_rows, fused_rows, down_rows, episode_laun
              and r["dtype"] == "bfloat16"][0]
     dmain = [r for r in down_rows
              if tuple(r["shape"]) == DOWN_MAIN_SHAPE and r["dtype"] == "bfloat16"][0]
-    paths = dict(episode_launches, **cached_launches, **eval_launches, **serve_launches,
-                 **train_cli_launches, **multi_launches,
+    paths = dict(episode_launches, **int8_launches, **cached_launches, **eval_launches,
+                 **serve_launches, **train_cli_launches, **multi_launches,
                  train_micro_step_1shot_b1=train_launches,
                  downsample_conv2x_encoder_inputs_b12=down_launches)
     by_path = lambda key: {p: c[key] for p, c in paths.items()}
@@ -3453,11 +3880,43 @@ def kernel_record(rows, bwd_rows, norm_rows, fused_rows, down_rows, episode_laun
                  "the entry point on the encoder's three B = 12 inputs, 0 on every "
                  "pipeline path (no model calls the op, as in the JAX package); "
                  "library_ms is F.pad + cuDNN's strided F.conv2d"})
+    imain = [r for r in int8_rows
+             if tuple(r["shape"]) + (r["stride"],) == INT8_MAIN_SHAPE][0]
+    i8_shape = "x".join(map(str, imain["shape"]))
+    out.append({
+        "name": "quantize_s8", "route": "cuda", "source": src + "quant_int8.cu",
+        "replaces": "diffews_tpu/ops/quant.py:327 (XLA ops, no pallas_call)",
+        "launches": int8_launches["episode_1shot_b4_int8"]["quantize_s8"],
+        "launches_by_path": by_path("quantize_s8"), "max_abs_err": 0.0,
+        "ms": imain["quantize_ms"], "plain_ms": imain["quantize_plain_ms"],
+        "bound_ms": imain["quantize_bound_ms"], "bound_by": "bytes", "library_ms": None,
+        "design": "8 elements a thread, 16-byte loads, a grid-stride loop; true division "
+                  "and rintf (the plain version's torch ops bit for bit)",
+        "shape": f"{i8_shape} (B, H, W, C) bf16 -> int8, static scale; no PyTorch call "
+                 "computes this function (library_ms null); bit for bit equal to its "
+                 "plain version at every shape"})
+    out.append({
+        "name": "conv2d_int8", "route": "cuda", "source": src + "quant_int8.cu",
+        "replaces": "diffews_tpu/ops/quant.py:317 (XLA ops, no pallas_call)",
+        "launches": int8_launches["episode_1shot_b4_int8"]["conv2d_int8"],
+        "launches_by_path": by_path("conv2d_int8"), "max_abs_err": 0.0,
+        "ms": imain["ms"], "plain_ms": imain["plain_ms"], "bound_ms": imain["bound_ms"],
+        "bound_by": imain["bound_by"], "library_ms": None,
+        "cudnn_bf16_ms": imain["cudnn_bf16_ms"], "tops": imain["tops"],
+        "share_of_bound": imain["share_of_bound"],
+        "design": "implicit GEMM, mma.sync m16n8k32 s8 -> s32: 128 pixels x 128 channels a "
+                  "CTA of 8 warps (64 x 32 a warp), K = 9 taps x 32-channel steps through a "
+                  "3-stage cp.async ring (zero fill at the image edge), 48-byte smem rows; "
+                  "epilogue f32(acc) * (w_scale * s_a) + bias without FMA contraction",
+        "shape": f"{i8_shape} -> {imain['shape'][4]} stride {imain['stride']}, int8 in, bf16 "
+                 "out; no PyTorch call computes the int8 conv (library_ms null; cudnn_bf16_ms "
+                 "is cuDNN's bf16 F.conv2d at the shape, the yardstick); bit for bit equal "
+                 "to its plain version at every shape"})
     return {"kernels": out}
 
 
-PHASES = ("device,build,kernel,bwd,norm,fused,downsample,tiny,tiny_train,full,eval,cached,"
-          "serve,train,train_cli,multi")
+PHASES = ("device,build,kernel,bwd,norm,fused,downsample,tiny,tiny_train,full,int8,eval,"
+          "cached,serve,train,train_cli,multi")
 
 
 def main():
@@ -3475,41 +3934,54 @@ def main():
         fail("torch.cuda.is_available() is false: this script needs a CUDA card")
     sys.path.insert(0, ROOT)
     t_start = time.time()
+    seconds = RESULTS.setdefault("phase_seconds", {})
+
+    def run(name, fn, *args, default=None):
+        """`fn(*args)` if phase `name` was asked for (else `default`), timed."""
+        if name not in phases:
+            return default
+        t0 = time.time()
+        try:
+            return fn(*args)
+        finally:
+            seconds[name] = time.time() - t0
+
     card = phase_device()
-    if "build" in phases:
-        phase_build()
-    rows = phase_kernel() if "kernel" in phases else []
-    bwd_rows = phase_bwd() if "bwd" in phases else []
+    run("build", phase_build)
+    rows = run("kernel", phase_kernel, default=[])
+    bwd_rows = run("bwd", phase_bwd, default=[])
     norm_rows, fused_rows, down_rows, down_launches = [], [], [], None
     if phases & {"norm", "fused", "downsample"}:
+        t0 = time.time()
         gn_shapes, fr_shapes, down_inputs = episode_shapes()
-        norm_rows = phase_norm(gn_shapes) if "norm" in phases else []
-        fused_rows = phase_fused(fr_shapes) if "fused" in phases else []
-        if "downsample" in phases:
-            down_rows, down_launches = phase_downsample(down_inputs)
+        seconds["episode_shapes"] = time.time() - t0
+        norm_rows = run("norm", phase_norm, gn_shapes, default=[])
+        fused_rows = run("fused", phase_fused, fr_shapes, default=[])
+        down_rows, down_launches = run("downsample", phase_downsample, down_inputs,
+                                       default=([], None))
         del down_inputs
         torch.cuda.empty_cache()
-    if "tiny" in phases:
-        phase_tiny()
-    if "tiny_train" in phases:
-        phase_tiny_train()
-    episode_launches = phase_full(card) if "full" in phases else None
-    eval_launches = phase_eval(card) if "eval" in phases else None
-    cached_launches = phase_cached(card) if "cached" in phases else None
-    serve_launches = phase_serve(card) if "serve" in phases else None
-    train_launches = phase_train(card) if "train" in phases else None
+    run("tiny", phase_tiny)
+    run("tiny_train", phase_tiny_train)
+    episode_launches = run("full", phase_full, card)
+    int8_rows, int8_launches = run("int8", phase_int8, card, default=([], None))
+    eval_launches = run("eval", phase_eval, card)
+    cached_launches = run("cached", phase_cached, card)
+    serve_launches = run("serve", phase_serve, card)
+    train_launches = run("train", phase_train, card)
     import shutil
     import tempfile
 
     # phase train_cli leaves its full-width checkpoint and data for phase multi
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        train_cli_launches = phase_train_cli(card, work) if "train_cli" in phases else None
-        multi_launches = (phase_multi(card, work)
-                          if {"train_cli", "multi"} <= phases else None)
+        train_cli_launches = run("train_cli", phase_train_cli, card, work)
+        multi_launches = (run("multi", phase_multi, card, work)
+                          if "train_cli" in phases else None)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     RESULTS["seconds"] = time.time() - t_start
+    emit({"phase": "phase_seconds", **seconds, "total": RESULTS["seconds"]})
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(RESULTS, f, indent=1)
@@ -3517,7 +3989,8 @@ def main():
         fail(f"phases {sorted(phases)} ran; the kernel record needs all of {PHASES}")
     emit(kernel_record(rows, bwd_rows, norm_rows, fused_rows, down_rows, episode_launches,
                        train_launches, cached_launches, down_launches, eval_launches,
-                       serve_launches, train_cli_launches, multi_launches))
+                       serve_launches, train_cli_launches, multi_launches, int8_rows,
+                       int8_launches))
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
 

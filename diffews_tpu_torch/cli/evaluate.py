@@ -19,8 +19,8 @@ the port's `DiffewsPipeline` on the CUDA card.  What differs:
     ("shots",) / ("data", "shots") shot mesh (`pipeline.py`), and rank 0
     alone logs and writes; the checks are the JAX CLI's
     (`cli/evaluate.py:132-154`);
-  - `--vae_impl int8` and `--unet_int8` raise (ROADMAP A12, in the
-    pipeline).
+  - `--vae_impl int8` and `--unet_int8` (W8A8) calibrate their static
+    scales on the pipeline's device when it loads.
 
 Usage (mirrors `scripts/eval_coco2014_rthres_1shot_nosample.sh`):
 
@@ -111,10 +111,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="VAE resnet implementation. Default 'xla' (GroupNorm "
                         "kernels + cuDNN convs) keeps metrics independent of "
                         "--bsz; 'fused' / 'mixed' / 'auto' opt into the fused "
-                        "conv kernel (batch-dependent rounding); 'int8' is not "
-                        "ported (ROADMAP A12)")
+                        "conv kernel (batch-dependent rounding); 'int8' "
+                        "quantizes the VAE 3x3 convs W8A8 (static scales "
+                        "calibrated at load, the int8 conv kernel on the card)")
     p.add_argument("--unet_int8", action="store_true",
-                   help="W8A8 UNet linears; not ported (ROADMAP A12)")
+                   help="W8A8 UNet self-attention, feed-forward and proj_in/out "
+                        "linears (static scales calibrated at load); "
+                        "accuracy-affecting, off by default")
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: the CUDA card, which must be "
                         "present; 'cpu' runs the kernels' plain versions)")

@@ -57,8 +57,9 @@ Runs on the CUDA card unless `--device cpu` is given (the kernels' plain
 versions); on a host without a card it raises.  `--num_data_shards` /
 `--num_shot_shards` above 1 raise: a daemon of one process per device needs
 rank 0 to hand every request to the other ranks, which is not ported
-(ROADMAP A11b; the pipeline's `mesh` / `shot_mesh` are).  So do
-`--vae_impl int8` and `--unet_int8` (W8A8, A12).
+(ROADMAP A11b; the pipeline's `mesh` / `shot_mesh` are).  `--vae_impl
+int8` and `--unet_int8` (W8A8) calibrate their static scales when the
+daemon loads; the cached endpoints run the int8 UNet too.
 """
 
 from __future__ import annotations
@@ -837,10 +838,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "plain version on the CPU); xla: dense attention")
     p.add_argument("--vae_impl", default="xla",
                    choices=["xla", "fused", "mixed", "auto", "int8"],
-                   help="VAE resnet implementation; 'int8' is not ported "
-                        "(ROADMAP A12)")
+                   help="VAE resnet implementation; 'int8' quantizes the VAE's "
+                        "3x3 convs W8A8 (static scales calibrated at load, the "
+                        "int8 conv kernel on the card)")
     p.add_argument("--unet_int8", action="store_true",
-                   help="W8A8 UNet linears; not ported (ROADMAP A12)")
+                   help="W8A8 UNet self-attention, feed-forward and proj_in/out "
+                        "linears (static scales calibrated at load); the cached "
+                        "endpoints run them too")
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: the CUDA card, which must be "
                         "present; 'cpu' runs the kernels' plain versions)")
@@ -853,9 +857,6 @@ def make_server(args) -> ModelServer:
         raise NotImplementedError(
             "--num_data_shards / --num_shot_shards > 1: the daemon's request "
             "broadcast to one process per device is not ported yet (ROADMAP A11b)")
-    if args.vae_impl == "int8" or args.unet_int8:
-        raise NotImplementedError(
-            "--vae_impl int8 / --unet_int8: W8A8 is not ported yet (ROADMAP A12)")
     if args.artifact:
         from diffews_tpu_torch import serving
 
@@ -876,7 +877,8 @@ def make_server(args) -> ModelServer:
         args.checkpoint, unet_dir=args.unet_ckpt_path,
         scheduler_dir=args.scheduler_load_path, device=device,
         compute_dtype=torch.bfloat16 if args.half_precision else torch.float32,
-        attn_impl=ATTN_IMPLS[args.attn_impl], vae_impl=args.vae_impl)
+        attn_impl=ATTN_IMPLS[args.attn_impl], vae_impl=args.vae_impl,
+        unet_int8=args.unet_int8)
     return ModelServer(pipe=pipe, bsz=args.bsz, nshot=args.nshot,
                        img_size=args.img_size, r_threshold=args.r_threshold,
                        max_caches=args.max_caches,

@@ -61,11 +61,12 @@ from diffews_tpu_torch import checkpoint as ckpt_lib
 from diffews_tpu_torch.configs import UNetConfig, VAEConfig
 from diffews_tpu_torch.models import clip_text
 from diffews_tpu_torch.parallel import mesh as mesh_lib
+from diffews_tpu_torch.ops import quant
 from diffews_tpu_torch.ops.resize import nearest_resize
 from diffews_tpu_torch.scheduler import DDIMScheduler
 from diffews_tpu_torch.utils import to_device
 
-VAE_IMPLS = ("xla", "fused", "mixed", "auto")
+VAE_IMPLS = ("xla", "fused", "mixed", "auto", "int8")
 # the JAX CLIs' --attn_impl choices -> the pipeline's attn_impl
 ATTN_IMPLS = {"auto": "auto", "xla": "dense", "pallas": "flash"}
 
@@ -135,13 +136,19 @@ class DiffewsPipeline:
         for encode and decode (it rounds its GroupNorm differently, by
         design); "auto" encodes through the fused chain when the encode
         batch has <= 4 images on a CUDA device, else "xla", and decodes
-        through "xla".  "int8" is not ported (ROADMAP A12).
+        through "xla"; "int8" runs the "xla" graph with every 3x3 conv of
+        >= 32 input channels W8A8 (`ops.quant`: static activation scales
+        calibrated at init on a synthetic batch, the int8 conv kernels on
+        the card; JAX `pipeline.py:179-194`).
       mesh: optional ("data",) `DeviceMesh`: the episode batch splits over
         its ranks and every rank gets the whole prediction.  A "model" axis
         (tensor parallelism) raises (ROADMAP A11b).
       shot_mesh: optional ("shots",) or ("data", "shots") `DeviceMesh`: the
         support shots (and the batch, over "data") split over its ranks.
-      unet_int8: not ported (ROADMAP A12).
+      unet_int8: W8A8 UNet self-attention, feed-forward and proj_in/out
+        linears (`ops.quant.unet_attention_linear`) with static scales
+        calibrated at init (JAX `pipeline.py:226-248`); cross-attention
+        and convs stay in the compute dtype.
     """
 
     def __init__(self, bundle: ckpt_lib.PipelineBundle, *, device=None,
@@ -149,12 +156,8 @@ class DiffewsPipeline:
                  test_timestep: int = 1, mesh=None, shot_mesh=None,
                  encode_chunks: int = 0, vae_impl: str = "xla",
                  unet_int8: bool = False, attn_mask_variant: bool = False):
-        if vae_impl == "int8":
-            raise NotImplementedError("vae_impl='int8': W8A8 is not ported yet (ROADMAP A12)")
         if vae_impl not in VAE_IMPLS:
             raise ValueError(f"unknown vae_impl {vae_impl!r} (expected one of {VAE_IMPLS})")
-        if unet_int8:
-            raise NotImplementedError("unet_int8: W8A8 is not ported yet (ROADMAP A12)")
         for m in (mesh, shot_mesh):
             if m is not None and "model" in (m.mesh_dim_names or ()):
                 raise NotImplementedError(
@@ -197,6 +200,13 @@ class DiffewsPipeline:
                                    memory_format=fmt).eval().requires_grad_(False)
         self.vae = bundle.vae.to(device=self.device, dtype=compute_dtype,
                                  memory_format=fmt).eval().requires_grad_(False)
+        if vae_impl == "int8":
+            # static per-site scales from a synthetic batch through the
+            # "xla" graph, on this device; the int8-ness then lives in the
+            # swapped modules and the episode runs the "xla" graph
+            scales = quant.calibrate_vae_scales(self.vae, attn_impl=attn_impl,
+                                                dtype=compute_dtype)
+            quant.quantize_conv_modules(self.vae, a_scales=scales)
 
         # Empty-prompt embedding, computed once in the text encoder's own
         # dtype (pipeline `:585-614`); the eval protocol uses the unpadded
@@ -210,6 +220,11 @@ class DiffewsPipeline:
                 self.empty_text_embed = torch.zeros(
                     (1, 2, self.unet_cfg.cross_attention_dim),
                     dtype=compute_dtype, device=self.device)
+        if unet_int8:
+            # every rank of a mesh calibrates alike on the same draws
+            scales = quant.calibrate_unet_scales(self.unet, self.empty_text_embed,
+                                                 attn_impl=attn_impl)
+            quant.quantize_linear_modules(self.unet, a_scales=scales)
 
     @classmethod
     def from_pretrained(cls, checkpoint: str, unet_dir: Optional[str] = None,
@@ -242,6 +257,8 @@ class DiffewsPipeline:
         resnet_impl = self.vae_impl
         if resnet_impl == "auto":
             resnet_impl = "fused" if nimg <= 4 and self.device.type == "cuda" else "xla"
+        elif resnet_impl == "int8":  # the convs are quantized modules
+            resnet_impl = "xla"
         chunks = self.encode_chunks or (1 if nimg <= 48 else -(-nimg // 24))
         enc = lambda x: self.vae.encode_mean_latent(x, attn_impl=self.attn_impl,
                                                     resnet_impl=resnet_impl)

@@ -137,7 +137,8 @@ class ServingModule:
 def load(path: str) -> ServingModule:
     """Load a directory written by `save_serving_artifact`."""
     # the custom ops must be registered before the program is deserialised
-    from diffews_tpu_torch.ops import downsample, flash_attention, fused_resnet, groupnorm  # noqa: F401
+    from diffews_tpu_torch.ops import (downsample, flash_attention, fused_resnet,  # noqa: F401
+                                       groupnorm, quant)
 
     with open(os.path.join(path, MANIFEST)) as f:
         manifest = json.load(f)

@@ -24,11 +24,11 @@ from diffews_tpu import checkpoint as JC
 from diffews_tpu import pipeline as JP
 from diffews_tpu.configs import CLIPTextConfig, SchedulerConfig, UNetConfig, VAEConfig
 from diffews_tpu.models import unet as JU
-from diffews_tpu.models import vae as JV
 from diffews_tpu_torch import checkpoint as TC
 from diffews_tpu_torch import configs as TCF
 from diffews_tpu_torch import pipeline as TP
 from diffews_tpu_torch.models.unet import UNet2DConditionModel
+from helpers.jax_checkpoint import tiny_params
 from helpers.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CFG = UNetConfig.tiny()
@@ -188,8 +188,7 @@ class TestUNetCaptureUse:
 @pytest.fixture(scope="module")
 def pipes():
     ucfg, vcfg = UNetConfig.tiny(), VAEConfig.tiny()
-    up = jax.device_get(jax.jit(lambda r: JU.init_params(r, ucfg))(jax.random.PRNGKey(0)))
-    vp = jax.device_get(jax.jit(lambda r: JV.init_params(r, vcfg))(jax.random.PRNGKey(1)))
+    up, vp = tiny_params()
     jb = JC.PipelineBundle(up, ucfg, vp, vcfg, None, CLIPTextConfig.tiny(),
                            SchedulerConfig.diffews())
 

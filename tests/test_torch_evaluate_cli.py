@@ -8,12 +8,12 @@ over 8 episodes and on every other benchmark; `--bsz 2`,
 `--mask_on_device`, `--dispatch_ahead 1` and `raw_images=False` equal the
 default run; `--use_original_imgsize` equals the JAX CLI's; the
 `_TEST_<bench>_<stamp>.log/log.txt` contract with its `[Batch: ...]`
-markers; the flag mapping onto the pipeline; the int8 (A12) flags raise,
-and so do the multi-device (A11) flags outside `torchrun`; without
-`--device` a host with no card raises.
+markers; the flag mapping onto the pipeline; the int8 (A12) flags against
+the JAX CLI's past quantizer ties (`helpers/int8_ties.py`); the
+multi-device (A11) flags outside `torchrun` raise; without `--device` a
+host with no card raises.
 """
 
-import json
 import os
 
 import jax
@@ -21,12 +21,11 @@ import numpy as np
 import pytest
 import torch
 
-from diffews_tpu import checkpoint as C
 from diffews_tpu.cli import evaluate as JE
-from diffews_tpu.configs import CLIPTextConfig, SchedulerConfig, UNetConfig, VAEConfig
-from diffews_tpu.models import clip_text, unet, vae
 from diffews_tpu_torch.cli import evaluate as TE
 from helpers import synthetic_data as syn
+from helpers.int8_ties import int8_parity
+from helpers.jax_checkpoint import write_jax_checkpoint
 from helpers.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = 1e-9
@@ -37,21 +36,7 @@ def workdir(tmp_path_factory):
     """A tiny checkpoint written by the JAX savers (as `tests/test_cli.py`
     writes it) and a synthetic COCO tree."""
     root = tmp_path_factory.mktemp("torch_cli")
-    ucfg, vcfg, tcfg = UNetConfig.tiny(), VAEConfig.tiny(), CLIPTextConfig.tiny()
-    ck = root / "ckpt"
-    C.save_unet(jax.jit(lambda r: unet.init_params(r, ucfg))(jax.random.PRNGKey(0)),
-                ucfg, str(ck / "unet"))
-    C.save_vae(jax.jit(lambda r: vae.init_params(r, vcfg))(jax.random.PRNGKey(1)),
-               vcfg, str(ck / "vae"))
-    tp = clip_text.init_params(jax.random.PRNGKey(2), tcfg)
-    state = {"text_model." + k: v for k, v in C.pytree_to_torch_state(tp).items()}
-    C.save_torch_weights(state, str(ck / "text_encoder"), C.TEXT_SAFETENSORS)
-    with open(ck / "text_encoder" / "config.json", "w") as f:
-        json.dump({"vocab_size": 1000, "hidden_size": 32, "intermediate_size": 64,
-                   "num_hidden_layers": 2, "num_attention_heads": 4}, f)
-    (ck / "scheduler").mkdir()
-    with open(ck / "scheduler" / "scheduler_config.json", "w") as f:
-        json.dump(SchedulerConfig.diffews().to_diffusers_dict(), f)
+    write_jax_checkpoint(str(root / "ckpt"))
     syn.make_coco(str(root / "data"))
     return root
 
@@ -180,13 +165,29 @@ def test_parser_matches_jax_plus_device():
 @pytest.mark.parametrize("extra,match", [
     pytest.param(["--num_data_shards", "2"], "torchrun", id="extra0-A11"),
     pytest.param(["--num_shot_shards", "2"], "torchrun", id="extra1-A11"),
-    (["--vae_impl", "int8"], "A12"), (["--unet_int8"], "A12")])
+    pytest.param(["--vae_impl", "int8"], "A12", id="extra2-A12"),
+    pytest.param(["--vae_impl", "int8", "--unet_int8"], "A12", id="extra3-A12")])
 def test_unported_flags_raise(workdir, extra, match):
-    """The int8 flags (A12) raise; the multi-device flags (A11) outside a
-    `torchrun` launch raise, saying how to launch them."""
-    exc = RuntimeError if match == "torchrun" else NotImplementedError
-    with pytest.raises(exc, match=match):
-        TE.main(_argv(workdir) + ["--device", "cpu"] + extra)
+    """The multi-device flags (A11) outside a `torchrun` launch raise,
+    saying how to launch them.  The int8 flags (A12, ported) run against
+    the JAX CLI with the same flags over 4 episodes: the int8 codes equal
+    JAX's but at ties and, with JAX's codes fed forward past each tie
+    (`helpers/int8_ties.py`), (mIoU, FB-IoU) equal within 1e-9 (both
+    calibrate at 64 px)."""
+    if match == "torchrun":
+        with pytest.raises(RuntimeError, match=match):
+            TE.main(_argv(workdir) + ["--device", "cpu"] + extra)
+        return
+    argv = _argv(workdir, episodes=4, logs="int8") + extra
+    with int8_parity() as ties:
+        ties.take()
+        want = JE.main(argv)
+        jax.effects_barrier()
+        with ties.force(ties.take()):
+            got = TE.main(argv + ["--device", "cpu"])
+    ties.check_ties()
+    _close(got, want)
+    assert np.isfinite(got).all()
 
 
 def test_no_card_without_device_raises(workdir, monkeypatch):

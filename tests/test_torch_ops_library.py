@@ -1,6 +1,6 @@
 """The port's forward kernels as torch custom ops (`torch.ops.diffews_tpu_torch`).
 
-Each op, on the CPU, in f32 and bf16: `torch.library.opcheck` (schema,
+Each op (the int8 conv writing f32 and bf16), on the CPU, in f32 and bf16: `torch.library.opcheck` (schema,
 fake implementation against the real one, strides included, autograd
 registration, AOT dispatch) passes, and its result equals its plain
 version's bit for bit, with contiguous outputs.  The CUDA implementation of
@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from diffews_tpu_torch.ops import downsample, flash_attention, fused_resnet, groupnorm
+from diffews_tpu_torch.ops import downsample, flash_attention, fused_resnet, groupnorm, quant
 from helpers.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 OPS = torch.ops.diffews_tpu_torch
@@ -33,6 +33,9 @@ def _cases(dt):
     a32, b32 = _r(2, 16, seed=7), _r(2, 16, seed=8)
     w, bias = _r(8, 16, 3, 3, seed=9, dtype=dt), _r(8, seed=10)
     w_sq, res = _r(16, 16, 3, 3, seed=11, dtype=dt), _r(2, 4, 6, 16, seed=12, dtype=dt)
+    s_a = quant.static_s_a(2.0)
+    xq = quant.quantize_s8_reference(x, s_a)
+    w8, s_w = quant.quantize_weight(w.permute(0, 2, 3, 1), (1, 2, 3))
     fa = lambda m: lambda: flash_attention.flash_attention_reference(q, k, v, scale=0.25,
                                                                      kv_mask=m)
     return {
@@ -53,6 +56,14 @@ def _cases(dt):
                                                            bias.repeat(2), res)),
         "downsample_conv2x": (OPS.downsample_conv2x, (x, w, bias),
                               lambda: downsample.downsample_conv2x_reference(x, w, bias)),
+        "quantize_s8": (OPS.quantize_s8, (x, s_a),
+                        lambda: quant.quantize_s8_reference(x, s_a)),
+        "conv2d_int8": (OPS.conv2d_int8, (xq, w8, s_w, s_a, bias, 1, [1, 1, 1, 1], dt),
+                        lambda: quant.conv2d_int8_reference(xq, w8, s_w, s_a, bias, 1, 1, dt)),
+        "conv2d_int8_encoder_down_no_bias": (
+            OPS.conv2d_int8, (xq, w8, s_w, s_a, None, 2, [0, 1, 0, 1], dt),
+            lambda: quant.conv2d_int8_reference(xq, w8, s_w, s_a, None, 2, ((0, 1), (0, 1)),
+                                                dt)),
     }
 
 
@@ -76,4 +87,4 @@ def test_op_opcheck_and_plain_version(case, dtype):
 def test_every_forward_kernel_has_one_op():
     names = {n for n in dir(OPS) if not n.startswith("_") and n != "name"}
     assert names == {"flash_attention_fwd", "gn_stats", "gn_apply",
-                     "fused_gn_silu_conv3x3", "downsample_conv2x"}
+                     "fused_gn_silu_conv3x3", "downsample_conv2x", "quantize_s8", "conv2d_int8"}

@@ -3,8 +3,9 @@ against `diffews_tpu.pipeline` on the same weights and inputs (CPU, f32).
 
 uint8 seg within 1 count on < 1% of pixels, the x0 latent to 1e-4, the
 same thresholded masks; `device_mask_from_seg` equal to the host formula.
-Every `vae_impl` the port takes ("xla", "fused", "mixed", "auto") is held
-against the JAX pipeline with the same flag.
+Every `vae_impl` the port takes ("xla", "fused", "mixed", "auto", "int8")
+and `unet_int8` are held against the JAX pipeline with the same flag (the
+int8 options past quantizer ties, `helpers/int8_ties.py`).
 """
 
 import jax
@@ -16,19 +17,19 @@ import torch
 from diffews_tpu import checkpoint as JC
 from diffews_tpu import pipeline as JP
 from diffews_tpu.configs import CLIPTextConfig, SchedulerConfig, UNetConfig, VAEConfig
-from diffews_tpu.models import unet as JU
 from diffews_tpu.models import vae as JV
 from diffews_tpu_torch.models import vae as TV
 from diffews_tpu_torch import checkpoint as TC
 from diffews_tpu_torch import configs as TCF
 from diffews_tpu_torch import pipeline as TP
+from helpers.int8_ties import assert_forced_episode, int8_parity
+from helpers.jax_checkpoint import tiny_params
 from helpers.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _bundles():
     ucfg, vcfg = UNetConfig.tiny(), VAEConfig.tiny()
-    up = jax.device_get(jax.jit(lambda r: JU.init_params(r, ucfg))(jax.random.PRNGKey(0)))
-    vp = jax.device_get(jax.jit(lambda r: JV.init_params(r, vcfg))(jax.random.PRNGKey(1)))
+    up, vp = tiny_params()
     jb = JC.PipelineBundle(up, ucfg, vp, vcfg, None, CLIPTextConfig.tiny(),
                            SchedulerConfig.diffews())
 
@@ -158,14 +159,27 @@ class _TensorParallelMesh:
 @pytest.mark.parametrize("kw", [{"vae_impl": "int8"}, {"unet_int8": True},
                                 {"mesh": _TensorParallelMesh()},
                                 {"shot_mesh": _TensorParallelMesh()}])
-def test_unported_options_raise(kw):
-    """int8 (A12) and a "model" mesh axis (A11b) raise; the data and shot
-    meshes are held in `test_torch_parallel.py` and
-    `test_torch_shot_parallel.py`."""
-    b = TC.random_pipeline_bundle(TCF.UNetConfig.tiny(), TCF.VAEConfig.tiny(), None,
-                                  TCF.SchedulerConfig.diffews())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TP.DiffewsPipeline(b, device="cpu", **kw)
+def test_unported_options_raise(bundles, kw):
+    """A "model" mesh axis (A11b) raises; the data and shot meshes are held
+    in `test_torch_parallel.py` and `test_torch_shot_parallel.py`.  The
+    int8 options (A12, ported) run against the JAX pipeline with the same
+    flag: the int8 codes equal JAX's but at ties and, with JAX's codes fed
+    forward past each tie, the segs meet the episode contract
+    (`helpers/int8_ties.py`); the masks of the run without feeding differ
+    on < 1% of pixels (both calibrate at 64 px)."""
+    if "vae_impl" not in kw and "unet_int8" not in kw:
+        b = TC.random_pipeline_bundle(TCF.UNetConfig.tiny(), TCF.VAEConfig.tiny(), None,
+                                      TCF.SchedulerConfig.diffews())
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            TP.DiffewsPipeline(b, device="cpu", **kw)
+        return
+    jb, port = bundles
+    with int8_parity() as ties:
+        jp, tp = JP.DiffewsPipeline(jb, **kw), TP.DiffewsPipeline(port(), device="cpu", **kw)
+        q, sup, m = _episode(2, 1, seed=11)
+        run = lambda p: lambda: p.predict(q, sup, m, r_threshold=0.25)
+        want, _ = assert_forced_episode(run(jp), run(tp), ties)
+    assert (tp.predict(q, sup, m, r_threshold=0.25).mask != want.mask).mean() < 0.01
 
 
 @pytest.mark.parametrize("vae_impl", ["fused", "mixed", "auto"])

@@ -13,9 +13,10 @@ evicted cache is in flight), micro-batch coalescing and error surfacing,
 stats, depth 1 without deadlock, raw against PNG ingestion and responses,
 the body limit, buckets against full padding and their range check,
 `warm_start`, artifact mode (one-off answers equal the artifact's output
-and the port pipeline's, bit for bit), the multi-device (A11) and int8
-(A12) flags raising, a host without a card raising, and SIGTERM's drain of
-a real `python -m diffews_tpu_torch.cli.serve --device cpu` process.
+and the port pipeline's, bit for bit), the multi-device (A11) flags
+raising, the int8 (A12) flags against the JAX daemon's past quantizer ties,
+a host without a card raising, and SIGTERM's drain of a real
+`python -m diffews_tpu_torch.cli.serve --device cpu` process.
 """
 
 import base64
@@ -35,7 +36,6 @@ import urllib.error
 import urllib.request
 from http.server import ThreadingHTTPServer
 
-import jax
 import numpy as np
 import pytest
 import torch
@@ -45,14 +45,14 @@ from diffews_tpu import checkpoint as JC
 from diffews_tpu import pipeline as JP
 from diffews_tpu.cli import serve as JS
 from diffews_tpu.configs import CLIPTextConfig, SchedulerConfig, UNetConfig, VAEConfig
-from diffews_tpu.models import unet as JU
-from diffews_tpu.models import vae as JV
 from diffews_tpu_torch import checkpoint as TC
 from diffews_tpu_torch import configs as TCF
 from diffews_tpu_torch import pipeline as TP
 from diffews_tpu_torch import serving
 from diffews_tpu_torch.cli import serve
 from diffews_tpu_torch.data.transforms import ImageTransform, nearest_resize_mask
+from helpers.int8_ties import assert_forced_episode, int8_parity
+from helpers.jax_checkpoint import tiny_params, write_jax_checkpoint
 from helpers.port_checkpoint import write_checkpoint
 from helpers.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
@@ -101,8 +101,7 @@ def _episode_contract(got: dict, want: dict) -> None:
 @pytest.fixture(scope="module")
 def pipes():
     ucfg, vcfg = UNetConfig.tiny(), VAEConfig.tiny()
-    up = jax.device_get(jax.jit(lambda r: JU.init_params(r, ucfg))(jax.random.PRNGKey(0)))
-    vp = jax.device_get(jax.jit(lambda r: JV.init_params(r, vcfg))(jax.random.PRNGKey(1)))
+    up, vp = tiny_params()
     jb = JC.PipelineBundle(up, ucfg, vp, vcfg, None, CLIPTextConfig.tiny(),
                            SchedulerConfig.diffews())
     tb = TC.random_pipeline_bundle(TCF.UNetConfig.tiny(), TCF.VAEConfig.tiny(), None,
@@ -655,11 +654,38 @@ def test_artifact_mode(pipe):
 @pytest.mark.parametrize("flags,item", [
     (["--num_data_shards", "2"], "A11"), (["--num_shot_shards", "2"], "A11"),
     (["--vae_impl", "int8"], "A12"), (["--unet_int8"], "A12")])
-def test_unported_flags_raise_before_loading(flags, item):
-    args = serve.build_parser().parse_args(["--checkpoint", "/nonexistent", "--device", "cpu",
-                                            *flags])
-    with pytest.raises(NotImplementedError, match=item):
-        serve.make_server(args)
+def test_unported_flags_raise_before_loading(flags, item, tmp_path_factory):
+    """The multi-device flags (A11b) raise before anything is loaded.  The
+    int8 flags (A12, ported) build a daemon from a JAX-saved checkpoint and
+    answer as the JAX daemon with the same flags does: `--vae_impl int8` a
+    one-off episode, `--unet_int8` supports.add and a cached request; the
+    int8 codes equal JAX's but at ties and, with JAX's codes fed forward
+    past each tie (`helpers/int8_ties.py`), the responses meet the episode
+    contract (both calibrate at 64 px)."""
+    if item == "A11":
+        args = serve.build_parser().parse_args(["--checkpoint", "/nonexistent", "--device",
+                                                "cpu", *flags])
+        with pytest.raises(NotImplementedError, match=item):
+            serve.make_server(args)
+        return
+    ck = tmp_path_factory.getbasetemp() / "int8_ckpt"
+    if not ck.exists():
+        write_jax_checkpoint(str(ck))
+    argv = ["--checkpoint", str(ck), "--bsz", "2", "--img-size", str(S), *flags]
+    sup = {"images": [_b64_png(_rgb(4))], "masks": [_b64_png(_mask(5))]}
+    query = {"query": [_b64_png(_rgb(6)), _b64_png(_rgb(7, h=30, w=30))], "return_seg": True}
+
+    def answer(ms):
+        if "--unet_int8" in flags:
+            return lambda: ms.segment({**query, "cache_id": ms.add_supports(sup)["cache_id"]})
+        return lambda: ms.segment({**query, "supports": sup["images"], "masks": sup["masks"]})
+
+    with int8_parity() as ties:
+        jms = JS.make_server(JS.build_parser().parse_args(argv))
+        tms = serve.make_server(serve.build_parser().parse_args(argv + ["--device", "cpu"]))
+        want, got = assert_forced_episode(answer(jms), answer(tms), ties,
+                                          seg=lambda r: np.stack([_png(x) for x in r["seg"][:1]]))
+    _episode_contract(got, want)
 
 
 def test_artifact_on_another_device_than_asked_raises(monkeypatch):

@@ -7,7 +7,8 @@ artifact, loaded in a fresh process that imports only
 `diffews_tpu_torch.serving`, equals the port pipeline's uint8 episode bit
 for bit, and the JAX pipeline's within the episode contract (uint8 within 1
 count on < 1% of pixels); the manifest's keys; the default all-valid shot
-mask; a wrong shape raising; a card artifact refusing to load on a host
+mask; the `--vae_impl int8` artifact equal to the int8 `predict` bit for
+bit; a wrong shape raising; a card artifact refusing to load on a host
 without a card; and, rehearsing the card's route on the CPU (every kernel
 call through its custom op, as on the card), each kernel call is one op
 node of the exported program and the program equals the eager episode.
@@ -19,21 +20,19 @@ import shutil
 import subprocess
 import sys
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from diffews_tpu import checkpoint as JC
 from diffews_tpu import pipeline as JP
-from diffews_tpu.configs import CLIPTextConfig, SchedulerConfig, UNetConfig, VAEConfig
-from diffews_tpu.models import clip_text, unet, vae
 from diffews_tpu_torch import pipeline as TP
 from diffews_tpu_torch import serving
 from diffews_tpu_torch.cli import export as TX
 from diffews_tpu_torch.ops import flash_attention as FA
 from diffews_tpu_torch.ops import groupnorm as GN
+from helpers.int8_ties import small_calibration
+from helpers.jax_checkpoint import write_jax_checkpoint
 from helpers.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -49,24 +48,7 @@ def _episode(b, n, s, seed=0):
 
 @pytest.fixture(scope="module")
 def ckpt(tmp_path_factory):
-    """A tiny checkpoint written by the JAX savers (as `tests/test_cli.py`
-    writes it)."""
-    ck = tmp_path_factory.mktemp("torch_serving") / "ckpt"
-    ucfg, vcfg, tcfg = UNetConfig.tiny(), VAEConfig.tiny(), CLIPTextConfig.tiny()
-    JC.save_unet(jax.jit(lambda r: unet.init_params(r, ucfg))(jax.random.PRNGKey(0)),
-                 ucfg, str(ck / "unet"))
-    JC.save_vae(jax.jit(lambda r: vae.init_params(r, vcfg))(jax.random.PRNGKey(1)),
-                vcfg, str(ck / "vae"))
-    tp = clip_text.init_params(jax.random.PRNGKey(2), tcfg)
-    state = {"text_model." + k: v for k, v in JC.pytree_to_torch_state(tp).items()}
-    JC.save_torch_weights(state, str(ck / "text_encoder"), JC.TEXT_SAFETENSORS)
-    with open(ck / "text_encoder" / "config.json", "w") as f:
-        json.dump({"vocab_size": 1000, "hidden_size": 32, "intermediate_size": 64,
-                   "num_hidden_layers": 2, "num_attention_heads": 4}, f)
-    (ck / "scheduler").mkdir()
-    with open(ck / "scheduler" / "scheduler_config.json", "w") as f:
-        json.dump(SchedulerConfig.diffews().to_diffusers_dict(), f)
-    return str(ck)
+    return write_jax_checkpoint(str(tmp_path_factory.mktemp("torch_serving") / "ckpt"))
 
 
 @pytest.fixture(scope="module")
@@ -117,6 +99,23 @@ def test_fresh_process_matches_pipelines(art_dir, ckpt, pipe, tmp_path):
         jnp.asarray(msk), jpipe.empty_text_embed, jnp.asarray(sm), 1))
     d = np.abs(got.astype(np.int32) - want.astype(np.int32))
     assert d.max() <= 1 and (d != 0).mean() < 0.01, (d.max(), (d != 0).mean())
+
+
+def test_int8_artifact_equals_int8_predict(ckpt, tmp_path):
+    """`cli/export.py --vae_impl int8` (as the JAX CLI offers it): the
+    loaded artifact equals the int8 pipeline's `predict` bit for bit (both
+    calibrate at 64 px), and its program holds the int8 weights."""
+    out = str(tmp_path / "art_int8")
+    with small_calibration():
+        TX.main(["--checkpoint", ckpt, "--out", out, "--bsz", str(B), "--nshot", str(N),
+                 "--img-size", str(S), "--vae_impl", "int8", "--device", "cpu"])
+        pipe = TP.DiffewsPipeline.from_pretrained(ckpt, device="cpu", vae_impl="int8")
+    art = serving.load(out)
+    q, sup, msk = _episode(B, N, S, seed=3)
+    np.testing.assert_array_equal(art(q, sup, msk).numpy(),
+                                  pipe.predict(q, sup, msk).seg_colored)
+    names = art._call.state_dict().keys()
+    assert any(k.endswith("weight_q") for k in names) and any(k.endswith(".s_a") for k in names)
 
 
 def test_manifest_describes_the_contract(mod):

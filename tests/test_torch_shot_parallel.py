@@ -25,9 +25,9 @@ from diffews_tpu import checkpoint as JC
 from diffews_tpu import pipeline as JP
 from diffews_tpu.configs import CLIPTextConfig, SchedulerConfig, UNetConfig, VAEConfig
 from diffews_tpu.models import unet as JU
-from diffews_tpu.models import vae as JV
 from diffews_tpu.ops.attention import fused_kv_attention, shot_parallel_fused_kv_attention
 from diffews_tpu_torch import checkpoint as TC
+from helpers.jax_checkpoint import tiny_params
 from helpers.torch_ranks import run_ranks
 from helpers.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
@@ -53,8 +53,7 @@ def case(tmp_path_factory):
     bias = ((1.0 - m.astype(np.float32)) * -10000.0).astype(np.float32)
 
     ucfg, vcfg = UNetConfig.tiny(), VAEConfig.tiny()
-    up = jax.device_get(jax.jit(lambda r: JU.init_params(r, ucfg))(jax.random.PRNGKey(0)))
-    vp = jax.device_get(jax.jit(lambda r: JV.init_params(r, vcfg))(jax.random.PRNGKey(1)))
+    up, vp = tiny_params()
     s = 16
     unet_in = {"sample": proj(2, s, s, ucfg.in_channels),
                "ref": proj(2, N, s, s, ucfg.ref_in_channels),

@@ -29,8 +29,6 @@ from safetensors import torch as st_torch
 from diffews_tpu import checkpoint as JC
 from diffews_tpu.configs import UNetConfig as JUNetConfig
 from diffews_tpu.configs import VAEConfig as JVAEConfig
-from diffews_tpu.models import unet as JU
-from diffews_tpu.models import vae as JV
 from diffews_tpu_torch import checkpoint as TC
 from diffews_tpu_torch import configs as TCF
 from diffews_tpu_torch.cli import surgery as TS
@@ -41,6 +39,7 @@ from diffews_tpu_torch.training import checkpoints as tck
 from diffews_tpu_torch.training import state as tstate
 from diffews_tpu_torch.utils import safetensors_codec as codec
 from diffews_tpu_torch.utils.init import build_module
+from helpers.jax_checkpoint import tiny_params
 from helpers.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 DTYPES = [torch.float32, torch.float16, torch.bfloat16, torch.int64, torch.int32,
@@ -120,8 +119,7 @@ def test_sharded_index_both_ways(tmp_path):
 @pytest.fixture(scope="module")
 def tiny_jax():
     ucfg, vcfg = JUNetConfig.tiny(), JVAEConfig.tiny()
-    up = jax.device_get(jax.jit(lambda r: JU.init_params(r, ucfg))(jax.random.PRNGKey(0)))
-    vp = jax.device_get(jax.jit(lambda r: JV.init_params(r, vcfg))(jax.random.PRNGKey(1)))
+    up, vp = tiny_params()
     return ucfg, vcfg, up, vp
 
 
