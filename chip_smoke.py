@@ -10,11 +10,12 @@ Phases, each of which fails the run (non-zero exit) on any error:
   1. device: the card's name and power limit (`nvidia-smi`);
   2. build: compile every `diffews_tpu_torch/ops/csrc/*.cu` with nvcc (one
      process each, started together), print ptxas's registers/spills,
-     and report the bf16 wgmma kernels' (flash forward, backward dq and
-     dkv, fused conv, downsample) registers, shared memory and their
-     SASS's wgmma (HGMMA), TMA (UTMALDG) and mma.sync (HMMA) instructions;
-     the fused-conv and downsample libraries must hold HGMMA and UTMALDG
-     and no HMMA;
+     and report the wgmma kernels' (bf16: flash forward, backward dq and
+     dkv, fused conv, downsample; int8: the W8A8 conv) registers, shared
+     memory and their SASS's wgmma (HGMMA bf16, IGMMA int8), TMA (UTMALDG)
+     and mma.sync (HMMA, IMMA) instructions; the fused-conv and downsample
+     libraries must hold HGMMA and UTMALDG and no HMMA, the int8 library
+     IGMMA and UTMALDG and no IMMA;
   3. kernel: the flash-attention forward kernel against its plain version
      at every shape a 512px episode gives it, in f32 (TF32 off) and bf16,
      O and LSE, with kernel / plain / `F.scaled_dot_product_attention`
@@ -296,6 +297,12 @@ def phase_build():
         check(conv["sass"] == {} or (conv["sass"]["HGMMA"] > 0 and conv["sass"]["UTMALDG"] > 0
                                      and conv["sass"]["HMMA"] == 0),
               f"the {name} library must hold HGMMA and UTMALDG and no HMMA: {conv['sass']}")
+    # the int8 conv: wgmma s8 (IGMMA) fed by TMA, no mma.sync (IMMA)
+    RESULTS["quant_int8_build"] = i8 = flash_resources(_build, "quant_int8")
+    emit({"phase": "build_quant_int8", **i8})
+    check(i8["sass"] == {} or (i8["sass"]["IGMMA"] > 0 and i8["sass"]["UTMALDG"] > 0
+                               and i8["sass"]["IMMA"] == 0),
+          f"the quant_int8 library must hold IGMMA and UTMALDG and no IMMA: {i8['sass']}")
 
 
 def flash_resources(_build, name: str) -> dict:
@@ -303,9 +310,10 @@ def flash_resources(_build, name: str) -> dict:
     shared memory and threads per CTA (from the library:
     `flash_attention_fwd_info` at each head dim, `flash_attention_bwd_info`
     for dq and dkv, `fused_resnet_info` for BN 128 and the heads' BN 8,
-    `downsample_info`), and the counts of wgmma (HGMMA), TMA-load (UTMALDG)
-    and mma.sync (HMMA) instructions in its SASS (`cuobjdump -sass`, where
-    the toolkit has it; else {})."""
+    `downsample_info`, `conv2d_int8_info` for stride 1 and 2 at BN 128 and
+    the heads' BN 8), and the counts of wgmma (HGMMA bf16, IGMMA int8),
+    TMA-load (UTMALDG) and mma.sync (HMMA, IMMA) instructions in its SASS
+    (`cuobjdump -sass`, where the toolkit has it; else {})."""
     import ctypes
     import shutil
 
@@ -320,6 +328,9 @@ def flash_resources(_build, name: str) -> dict:
     elif name == "fused_resnet":
         calls = {f"bn{bn}": (lambda *r, i=i: lib.fused_resnet_info(i, *r))
                  for i, bn in enumerate((128, 8))}
+    elif name == "quant_int8":
+        calls = {key: (lambda *r, i=i: lib.conv2d_int8_info(i, *r))
+                 for i, key in enumerate(("s1_bn128", "s2_bn128", "s1_bn8", "s2_bn8"))}
     else:
         calls = {"bn128": lambda *r: lib.downsample_info(0, *r)}
     for key, call in calls.items():
@@ -334,7 +345,8 @@ def flash_resources(_build, name: str) -> dict:
     if os.path.exists(cuobjdump):
         out = subprocess.run([cuobjdump, "-sass", str(_build._target(name))],
                              capture_output=True, text=True, timeout=120).stdout
-        sass = {op: len(re.findall(rf"\b{op}\b", out)) for op in ("HGMMA", "UTMALDG", "HMMA")}
+        sass = {op: len(re.findall(rf"\b{op}\b", out))
+                for op in ("HGMMA", "IGMMA", "UTMALDG", "HMMA", "IMMA")}
     return {"kernels": res, "sass": sass}
 
 
@@ -1190,12 +1202,12 @@ def _kernel_class(name: str) -> str:
         return "gn_stats (B4a)"
     if "gn_apply" in n:
         return "gn_apply (B4b)"
+    if "conv2d_int8" in n:  # conv2d_int8_wgmma_kernel<stride, BN, out type>, heads included
+        return "conv2d_int8 (A12)"
     if "conv_wgmma_kernel" in n or "conv_f32_kernel" in n:
         return "fused_gn_silu_conv3x3 (B5)"
     if "down_wgmma_kernel" in n or "down_f32_kernel" in n:
         return "downsample_conv2x (B6)"
-    if "conv2d_int8_kernel" in n:
-        return "conv2d_int8 (A12)"
     if "quantize_s8_kernel" in n:
         return "quantize_s8 (A12)"
     if "sum_partials" in n:
@@ -3904,10 +3916,13 @@ def kernel_record(rows, bwd_rows, norm_rows, fused_rows, down_rows, episode_laun
         "bound_by": imain["bound_by"], "library_ms": None,
         "cudnn_bf16_ms": imain["cudnn_bf16_ms"], "tops": imain["tops"],
         "share_of_bound": imain["share_of_bound"],
-        "design": "implicit GEMM, mma.sync m16n8k32 s8 -> s32: 128 pixels x 128 channels a "
-                  "CTA of 8 warps (64 x 32 a warp), K = 9 taps x 32-channel steps through a "
-                  "3-stage cp.async ring (zero fill at the image edge), 48-byte smem rows; "
-                  "epilogue f32(acc) * (w_scale * s_a) + bias without FMA contraction",
+        "design": "persistent implicit GEMM on the shared wgmma core (conv_common.cuh) in "
+                  "int8: 16x16 output tiles, the nine taps' weights by one TMA box read in "
+                  "place from the (Cout, 3, 3, Cin) codes, the patch by cp.async (zero fill "
+                  "at the image edge and past Cin), 32-channel chunks in a 4-stage ring (3 "
+                  "at stride 2), two consumer warpgroups of wgmma m64n128k32 s8 -> s32; the "
+                  "heads (Cout <= 8) m64n8k32 at two CTAs an SM; epilogue f32(acc) * "
+                  "(w_scale * s_a) + bias without FMA contraction",
         "shape": f"{i8_shape} -> {imain['shape'][4]} stride {imain['stride']}, int8 in, bf16 "
                  "out; no PyTorch call computes the int8 conv (library_ms null; cudnn_bf16_ms "
                  "is cuDNN's bf16 F.conv2d at the shape, the yardstick); bit for bit equal "

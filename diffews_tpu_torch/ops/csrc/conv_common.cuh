@@ -1,6 +1,10 @@
-// The implicit-GEMM core shared by the port's bf16 3x3 convolutions on
-// Hopper (sm_90a): the fused GroupNorm-apply + SiLU + conv3x3
-// (`fused_resnet.cu`) and the stride-2 downsample (`downsample.cu`).
+// The implicit-GEMM core shared by the port's 3x3 convolutions on Hopper
+// (sm_90a): in bf16 the fused GroupNorm-apply + SiLU + conv3x3
+// (`fused_resnet.cu`) and the stride-2 downsample (`downsample.cu`); in
+// int8 the W8A8 conv (`quant_int8.cu`).  The element type is a parameter
+// (ESIZE bytes): a 16-byte patch group holds 8 bf16 or 16 int8 channels, a
+// wgmma k-step reads 32 bytes of K (m64nNk16 bf16 with f32 accumulators,
+// m64nNk32 s8 with s32 ones), and the byte geometry is the same.
 //
 // GEMM view: M = output pixels, N = Cout, K = 9 taps x Cin.  A CTA owns a
 // 16 x 16 tile of output pixels of one image and BN output channels, and
@@ -8,11 +12,12 @@
 // a ring in shared memory:
 //
 //  - the chunk's weights for all nine taps, [tap][BN rows][BK channels],
-//    one TMA load of a (BK, BN, 9) box from the wrapper's [tap][Cout][Cin]
-//    repack, rows swizzled by the BK*2-byte span: the K-major B operand.
+//    one TMA load of a (BK, BN, 9) box (from the wrapper's [tap][Cout][Cin]
+//    bf16 repack, or the int8 (Cout, 3, 3, Cin) weights in place), rows
+//    swizzled by the BK*ESIZE-byte span: the K-major B operand.
 //    Channels past Cin and rows past Cout are TMA's zero fill;
-//  - the tile's input patch, [8-channel group][position][8 channels]: the
-//    no-swizzle core-matrix layout, in which a window that starts at any
+//  - the tile's input patch, [16-byte channel group][position][16 bytes]:
+//    the no-swizzle core-matrix layout, in which a window that starts at any
 //    position is a valid wgmma A descriptor.  So each of the nine taps
 //    reads its shifted (or, at stride 2, strided) window of the one patch
 //    in place: no copy per tap.  Producer threads fill it with 16-byte
@@ -31,9 +36,9 @@
 // third).  The two consumer warpgroups each own 8 tile rows: two 8 x 8
 // pixel blocks, each one m64
 // wgmma block (row 8i + j = pixel (i, j) of the block: 8-row groups one
-// patch row apart, a constant stride), with f32 accumulators of both
-// blocks in registers (BN = 128: 128 a thread).  They issue a chunk's
-// 9 x (BK / 16) x 2 products as one wgmma group, release the previous
+// patch row apart, a constant stride), with f32 (bf16) or s32 (int8)
+// accumulators of both blocks in registers (BN = 128: 128 a thread).  They issue a chunk's
+// 9 x (SPAN / 32) x 2 products as one wgmma group, release the previous
 // chunk's stage when that group's predecessor is done (so the tensor
 // cores see the next chunk's products queued behind the current ones),
 // and run the kernel's own epilogue on the accumulators.  No K is split
@@ -51,6 +56,8 @@
 
 #pragma once
 
+#include <type_traits>
+
 #include "hopper_common.cuh"
 
 namespace conv {
@@ -60,15 +67,19 @@ constexpr int kTile = 16;      // output tile: 16 x 16 pixels
 
 // BK: input channels per chunk; BN: output channels per CTA; NPOS: patch
 // positions; STAGES: ring depth; EXTRA: bytes of the kernel's own scratch
-// (at EXTRA_OFF) after the ring.
-template <int BK_, int BN_, int NPOS_, int STAGES_, int EXTRA_>
+// (at EXTRA_OFF) after the ring; ESIZE: bytes an element (2: bf16 with f32
+// accumulators, 1: int8 with s32 ones).
+template <int BK_, int BN_, int NPOS_, int STAGES_, int EXTRA_, int ESIZE_ = 2>
 struct Cfg {
-  static constexpr int BK = BK_, BN = BN_, NPOS = NPOS_, STAGES = STAGES_;
-  static constexpr int G = BK / 8;                  // 8-channel groups a chunk
-  static constexpr int SPAN = BK * 2;               // weight row bytes = swizzle span
+  static constexpr int BK = BK_, BN = BN_, NPOS = NPOS_, STAGES = STAGES_, ESIZE = ESIZE_;
+  using Acc = std::conditional_t<ESIZE == 1, int32_t, float>;
+  static constexpr int CPG = 16 / ESIZE;            // channels of a 16-byte group
+  static constexpr int G = BK / CPG;                // 16-byte groups a chunk
+  static constexpr int SPAN = BK * ESIZE;           // weight row bytes = swizzle span
+  static constexpr int KSTEPS = SPAN / 32;          // wgmma k-steps a chunk (32 bytes of K)
   static constexpr int W_BYTES = 9 * BN * SPAN;     // a chunk's weights
   static constexpr int PATCH_OFF = (W_BYTES + 1023) / 1024 * 1024;
-  static constexpr int LBO = NPOS * 16;             // between 8-channel groups
+  static constexpr int LBO = NPOS * 16;             // between 16-byte groups
   static constexpr int PATCH_BYTES = G * LBO;
   static constexpr int STAGE_BYTES = (PATCH_OFF + PATCH_BYTES + 1023) / 1024 * 1024;
   static constexpr int EXTRA_OFF = STAGES * STAGE_BYTES;
@@ -76,7 +87,8 @@ struct Cfg {
   static constexpr int N_BARS = 2 * STAGES + 2;     // full, empty per stage; 2 of the kernel's
   static constexpr int SMEM = BAR_OFF + N_BARS * 8 + 1024;  // + alignment slack
   static constexpr int ITEMS = G * NPOS;            // 16-byte copies a chunk
-  static_assert(BK % 16 == 0, "chunk shape");
+  static_assert(ESIZE == 1 || ESIZE == 2, "bf16 or int8");
+  static_assert(SPAN % 32 == 0, "chunk shape");
   static_assert(SMEM <= 232448, "shared memory");
 };
 
@@ -91,6 +103,19 @@ inline bool encode_weight_map(CUtensorMap* map, const void* w, int Cin, int Cout
   const cuuint64_t strides[2] = {(cuuint64_t)Cin * 2, (cuuint64_t)Cout * Cin * 2};
   const cuuint32_t box[3] = {(cuuint32_t)bk, (cuuint32_t)bn, 9};
   return hopper::encode_tiled(map, w, 3, dims, strides, box, swizzle);
+}
+
+// Host: the tensor map of int8 weights in their own (Cout, 3, 3, Cin)
+// layout, read in place as the 3-D tensor (Cin, Cout, 9) with byte strides
+// (9 * Cin, Cin) (multiples of 16 when Cin % 16 == 0), boxes of (bk, bn, 9):
+// one chunk, all taps, in the [tap][bn][bk] order of the bf16 repack.
+inline bool encode_weight_map_s8(CUtensorMap* map, const void* w, int Cin, int Cout, int bk,
+                                 int bn, CUtensorMapSwizzle swizzle) {
+  const cuuint64_t dims[3] = {(cuuint64_t)Cin, (cuuint64_t)Cout, 9};
+  const cuuint64_t strides[2] = {(cuuint64_t)Cin * 9, (cuuint64_t)Cin};
+  const cuuint32_t box[3] = {(cuuint32_t)bk, (cuuint32_t)bn, 9};
+  return hopper::encode_tiled(map, w, 3, dims, strides, box, swizzle,
+                              CU_TENSOR_MAP_DATA_TYPE_UINT8);
 }
 
 // Host: the persistent grid, `per_sm` CTAs an SM (at most one per work item).
@@ -143,8 +168,8 @@ __device__ __forceinline__ void init_ring(uint64_t* full, uint64_t* empty) {
 // stage's "full" barrier as their copies land.  make_fill(item) gives the
 // item's Fill:
 //   x             any valid global address (the source of a zero fill);
-//   src(pos, c)   the global address of channels c..c+7 at patch position
-//                 pos, or nullptr where they are zero.
+//   src(pos, c)   the global address of channels c..c+CPG-1 (16 bytes) at
+//                 patch position pos, or nullptr where they are zero.
 // after_item(item, r) runs on all 128 threads after the r-th item's chunks.
 template <class C, class MakeFill, class AfterItem>
 __device__ __forceinline__ void produce(const CUtensorMap* tw, uint8_t* base, uint64_t* full,
@@ -168,7 +193,7 @@ __device__ __forceinline__ void produce(const CUtensorMap* tw, uint8_t* base, ui
         tma_load_3d(st, tw, &full[s], k * C::BK, item.n0, 0);
       }
       uint8_t* patch = st + C::PATCH_OFF + grp * C::LBO;
-      const int c0 = k * C::BK + grp * 8;
+      const int c0 = k * C::BK + grp * C::CPG;
 #pragma unroll
       for (int it = 0; it < ITERS; ++it) {
         const int idx = p + it * 128;
@@ -193,7 +218,7 @@ struct NoPrep {
 
 // A consumer warpgroup, one item's `nchunks` chunks: acc[mb] = the m64
 // block mb (of 2) x the chunks' weights, over the nine taps.  a_off(tap,
-// mb): byte offset in an 8-channel-group plane of the patch of the block's
+// mb): byte offset in a 16-byte-group plane of the patch of the block's
 // first row at that tap; sbo: bytes between the block's 8-row groups.
 // Each stage is released once the products of the chunk after it are
 // queued and its own are done.  With an active Prep, the two consumer
@@ -203,7 +228,7 @@ struct NoPrep {
 // loads issued before the wait for chunk k - 1's products); a barrier over
 // both warpgroups (id 3) then hands it to the products.
 template <class C, class AOff, class Prep>
-__device__ __forceinline__ void consume_item(float (&acc)[2][C::BN / 2], uint8_t* base,
+__device__ __forceinline__ void consume_item(typename C::Acc (&acc)[2][C::BN / 2], uint8_t* base,
                                              uint64_t* full, uint64_t* empty, int nchunks,
                                              uint32_t sbo, int lane, int ct, AOff a_off,
                                              const Prep& prep, uint32_t& q) {
@@ -223,7 +248,7 @@ __device__ __forceinline__ void consume_item(float (&acc)[2][C::BN / 2], uint8_t
 #pragma unroll
   for (int mb = 0; mb < 2; ++mb)
 #pragma unroll
-    for (int i = 0; i < C::BN / 2; ++i) acc[mb][i] = 0.f;
+    for (int i = 0; i < C::BN / 2; ++i) acc[mb][i] = 0;
   if constexpr (Prep::kActive) ready(q, 0, prep.load(0, ct));
   for (int k = 0; k < nchunks; ++k, ++q) {
     if constexpr (!Prep::kActive) ready(q, k, {});
@@ -233,12 +258,17 @@ __device__ __forceinline__ void consume_item(float (&acc)[2][C::BN / 2], uint8_t
 #pragma unroll
     for (int tap = 0; tap < 9; ++tap)
 #pragma unroll
-      for (int ks = 0; ks < C::BK / 16; ++ks)
+      for (int ks = 0; ks < C::KSTEPS; ++ks)
 #pragma unroll
-        for (int mb = 0; mb < 2; ++mb)
-          wgmma_ss<C::BN, 0>(
-              acc[mb], make_desc_plain(p_addr + a_off(tap, mb) + ks * 2 * C::LBO, C::LBO, sbo),
-              make_desc<C::SPAN>(w_addr + tap * C::BN * C::SPAN + ks * 32), 1);
+        for (int mb = 0; mb < 2; ++mb) {
+          const uint64_t da =
+              make_desc_plain(p_addr + a_off(tap, mb) + ks * 2 * C::LBO, C::LBO, sbo);
+          const uint64_t db = make_desc<C::SPAN>(w_addr + tap * C::BN * C::SPAN + ks * 32);
+          if constexpr (C::ESIZE == 1)
+            wgmma_s8<C::BN>(acc[mb], da, db, 1);
+          else
+            wgmma_ss<C::BN, 0>(acc[mb], da, db, 1);
+        }
     wgmma_commit();
     typename Prep::Coef cf;
     if constexpr (Prep::kActive)

@@ -3,8 +3,8 @@
 //  - mbarrier ops (init, arrive, arrive with an expected transaction
 //    count, parity wait) for producer/consumer rings in shared memory;
 //  - TMA: 3-D and 4-D tiled loads and plain bulk copies into shared memory
-//    that complete on an mbarrier, and host-side tensor maps (any bf16
-//    tiled map; that of a contiguous (B, S, H, D) tensor);
+//    that complete on an mbarrier, and host-side tensor maps (any tiled
+//    map; that of a contiguous (B, S, H, D) bf16 tensor);
 //  - cp.async 16-byte copies with zero-fill, and their mbarrier arrival;
 //  - the producer warp of a key/value ring (flash forward, flash dq): it
 //    votes over each tile's key-mask bytes, skips tiles with no valid key
@@ -12,7 +12,8 @@
 //  - wgmma: shared-memory matrix descriptors (swizzled, and the no-swizzle
 //    core-matrix layout), fence / commit / wait, and
 //    the bf16 m64nNk16 products the kernels use (f32 accumulate), with A
-//    from shared memory ("ss") or from registers ("rs");
+//    from shared memory ("ss") or from registers ("rs"), and the int8
+//    m64nNk32 products (s32 accumulate, both operands from shared memory);
 //  - setmaxnreg, named barriers, the async-proxy fence, ex2.
 //
 // Operand layouts.  A tile whose rows are exactly one swizzle span long
@@ -134,13 +135,15 @@ __device__ __forceinline__ void cp_async_arrive_noinc(uint64_t* bar) {
                : "memory");
 }
 
-// Host: a tiled bf16 tensor map of `rank` dims (innermost first; `strides`:
-// the rank - 1 outer strides in bytes, multiples of 16) with boxes of `box`.
-// Boxes reaching past a dim are zero-filled.  cuTensorMapEncodeTiled is
-// resolved at run time, so nothing links -lcuda.  Returns false on failure.
+// Host: a tiled tensor map of `rank` dims (innermost first; `strides`: the
+// rank - 1 outer strides in bytes, multiples of 16) with boxes of `box`, of
+// bf16 elements unless `dtype` says otherwise.  Boxes reaching past a dim
+// are zero-filled.  cuTensorMapEncodeTiled is resolved at run time, so
+// nothing links -lcuda.  Returns false on failure.
 inline bool encode_tiled(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
                          const cuuint64_t* strides, const cuuint32_t* box,
-                         CUtensorMapSwizzle swizzle) {
+                         CUtensorMapSwizzle swizzle,
+                         CUtensorMapDataType dtype = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                               const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                               const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -162,7 +165,7 @@ inline bool encode_tiled(CUtensorMap* map, const void* ptr, int rank, const cuui
     encode = reinterpret_cast<Encode>(fn);
   }
   const cuuint32_t elem_strides[5] = {1, 1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims,
+  return encode(map, dtype, rank, const_cast<void*>(ptr), dims,
                 strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
@@ -240,6 +243,11 @@ template <int N>
 __device__ __forceinline__ void fence_operands(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_operands(int32_t (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // D(64 x N, f32) = A(64 x 16, smem, K-major) * B(16 x N, smem) + (scale_d ? D : 0);
@@ -408,6 +416,50 @@ __device__ __forceinline__ void wgmma_rs<16>(float (&d)[8], const uint32_t (&a)[
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// D(64 x N, s32) = A(64 x 32, smem, K-major) * B(32 x N, smem, K-major) +
+// (scale_d ? D : 0), int8 operands (exact integer sums).  The accumulator
+// layout is that of the f32 products above.
+template <int N>
+__device__ __forceinline__ void wgmma_s8(int32_t (&d)[N / 2], uint64_t da, uint64_t db,
+                                         int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_s8<128>(int32_t (&d)[64], uint64_t da, uint64_t db,
+                                            int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8<8>(int32_t (&d)[4], uint64_t da, uint64_t db,
+                                            int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k32.s32.s8.s8 {"
+      "%0, %1, %2, %3"
+      "}, %4, %5, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 // --- warp specialisation -----------------------------------------------------

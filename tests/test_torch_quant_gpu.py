@@ -3,13 +3,18 @@ linear's `torch._int_mm` route against their plain versions, on the card,
 bit for bit.
 
 The integer sum is exact and the epilogue is the plain version's IEEE
-operations in the same order, so every comparison is exact (`torch.equal`):
-stride 1 and 2; paddings (1,1),(1,1), (0,1),(0,1) (the VAE encoder's
-downsample) and 0; Cout 3, 8 and 128 (and 136, past the 128-channel N
-block); Cin 32, 48 (a 16-channel tail past the 32-channel step), 128 and
-512; ragged H and W (not multiples of anything, and M not a multiple of
-the 128-pixel tile); f32 and bf16; static and dynamic scales;
-bit-identical repeats.  Cin 40 and stride 3 raise.  `quantize_s8` at ties
+operations in the same order, so every comparison is exact (`torch.equal`).
+The conv kernel's tiles are 16 x 16 output pixels, 32 input channels a
+chunk and N blocks of 128 channels (8 for Cout <= 8, the heads), walked by
+a persistent grid of one CTA an SM (two for the heads); the cases sit
+around them: stride 1 and 2; paddings (1,1),(1,1), (0,1),(0,1) (the VAE
+encoder's downsample) and 0; Cout 3, 8 (narrow N block), 9, 128 and 136
+(past one 128-channel block); Cin 16, 48 and 80 (a 16-channel tail past
+the 32-channel chunk), 32, 128 and 512; H and W ragged against the tile
+(8, 9, 17, 33, ...); B = 1 up to 13, with more work items than CTAs (more
+than one persistent wave, wide and narrow); f32 and bf16; static and
+dynamic scales; with and without bias; bit-identical repeats.  Cin 40,
+stride 3 and padding 2 raise.  `quantize_s8` at ties
 (values at exactly (k + 0.5)·s_a round half to even) and saturation.  The
 int8 linear at M <= 16 and at K and N not multiples of 8 (padded for
 `torch._int_mm`).  Weights quantized on the card equal the CPU's.
@@ -48,7 +53,13 @@ def _conv_inputs(B, H, W, Cin, Cout, dtype, seed, device, bias=True):
 PADS = {"same": ((1, 1), (1, 1)), "encoder_down": ((0, 1), (0, 1)), "valid": 0}
 SHAPES = [  # (B, H, W, Cin, Cout)
     (1, 8, 8, 32, 8), (3, 13, 21, 32, 3), (2, 17, 9, 48, 128), (1, 33, 47, 128, 128),
-    (2, 16, 16, 128, 136), (1, 9, 30, 512, 8), (1, 20, 12, 512, 512), (5, 11, 7, 64, 3)]
+    (2, 16, 16, 128, 136), (1, 9, 30, 512, 8), (1, 20, 12, 512, 512), (5, 11, 7, 64, 3),
+    # Cin 16 (half a chunk), Cout 9 (just past the narrow block)
+    (1, 17, 33, 16, 9),
+    # Cin 80 (two chunks and a half), Cout 136
+    (2, 8, 17, 80, 136),
+    # B = 13: 156 wide items at stride 1 (> 132 CTAs), 325 narrow ones (> 264)
+    (13, 64, 48, 32, 128), (13, 80, 80, 16, 8)]
 
 
 @pytest.mark.parametrize("static", [True, False], ids=["static", "dynamic"])
@@ -74,8 +85,9 @@ def test_conv_equals_plain_version(cuda, shape, stride, pad, dtype, static):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-def test_conv_without_bias(cuda, dtype):
-    x, w8, s_w, _ = _conv_inputs(2, 10, 14, 32, 8, dtype, 7, cuda, bias=False)
+@pytest.mark.parametrize("cout", [8, 128], ids=["narrow", "wide"])
+def test_conv_without_bias(cuda, cout, dtype):
+    x, w8, s_w, _ = _conv_inputs(2, 10, 14, 32, cout, dtype, 7, cuda, bias=False)
     s = Q.static_s_a(1.5, cuda)
     y = Q.conv2d_int8(x, w8, s_w, None, s_a=s)
     want = Q.conv2d_int8_reference(Q.quantize_s8_reference(x, s), w8, s_w, s, None, 1,

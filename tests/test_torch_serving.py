@@ -75,8 +75,12 @@ def test_fresh_process_matches_pipelines(art_dir, ckpt, pipe, tmp_path):
     sm = np.ones((B, N), bool)
     sm[1, 1] = False
     np.savez(tmp_path / "episode.npz", q=q, sup=sup, msk=msk, sm=sm)
+    # the fresh process runs torch on one intra-op thread, as `pipe.predict`
+    # here does (`one_torch_thread`): oneDNN's CPU convolutions sum in
+    # another order on another thread count, and the comparison is bit for bit
     code = (
-        "import sys, numpy as np\n"
+        "import sys, numpy as np, torch\n"
+        "torch.set_num_threads(1)\n"
         "import diffews_tpu_torch.serving as serving\n"
         f"e = np.load({str(tmp_path / 'episode.npz')!r})\n"
         f"mod = serving.load({art_dir!r})\n"
