@@ -67,7 +67,27 @@ Phases, each of which fails the run (non-zero exit) on any error:
      5-shot episode with two padded shots against the 3-shot episode,
      under "xla" and "fused"; the f32 (TF32 off) fused-vs-xla VAE encode
      and decode;
- 11. int8: W8A8 (`vae_impl="int8"`, `unet_int8`) at the same widths: (a)
+ 11. depth: the depth head (`predict_depth`): (a) tiny f32 (TF32 off)
+     depth episodes on the card against the CPU under `vae_impl` "xla",
+     "fused", "mixed", "auto" (batch 1) and "int8" (the CPU's codes fed
+     forward past ties), with and without a resize, within
+     `tests/helpers/depth_check.py`'s contract (raw map 5e-5 + 1e-4 rel,
+     `depth_np` 1e-4 / range, the colourised map on < 1% of pixels by at
+     most one colormap step); (b) full width, bf16, 512px, phase full's
+     weights and episode: 1-shot b4 under "xla" and "auto" and b1 under
+     "auto", each with phase full's launches (34 flash, 94 + 94 GroupNorm
+     under "xla"), a bit-identical repeat, the raw map equal bit for bit
+     to the channel mean of `vae.decode(_x0_latent(...))` recomputed; the
+     bilinear resize to 375x500 on the card against the CPU function
+     (1e-6); two padded shots of a 5-shot b1 episode change no bit;
+     `predict_depth` against `predict` in turns (walls, busy, idle); (c)
+     the utils on the card: `find_batch_size` reads its memory (the 32
+     GiB row), `profiling.trace` of a depth episode names the flash
+     forward kernel, `StageTimer` waits for the card; (d) the port's CLIs
+     on a tiny tree with `--device cuda`: `verify_parity --skip_golden`'s
+     mIoU equals the eval CLI's, `measure_baseline --subject self`
+     reports its rate;
+ 12. int8: W8A8 (`vae_impl="int8"`, `unet_int8`) at the same widths: (a)
      the int8 kernels (`quantize_s8`, `conv2d_int8`) against their plain
      versions bit for bit at every int8 conv shape of the 1-shot b4
      episode (recorded from it: encoder B = 12, decoder B = 4, the three
@@ -84,14 +104,14 @@ Phases, each of which fails the run (non-zero exit) on any error:
      forward past quantizer ties; (e) tiny f32 episodes card against CPU
      (the CPU's codes fed forward); (f) the `--vae_impl int8` artifact
      exported on the card equal to `predict` bit for bit;
- 12. eval: the eval harness (`diffews_tpu_torch.cli.evaluate`) on a
+ 13. eval: the eval harness (`diffews_tpu_torch.cli.evaluate`) on a
      synthetic COCO tree (`tests/helpers/synthetic_data.make_coco`): the CLI
      from a tiny checkpoint written from the port's seeded modules
      (`tests/helpers/port_checkpoint.py`) on the card and on the CPU, f32
      with TF32 off, 8 episodes at 32px under `vae_impl` "xla" and "auto"
      (equal mIoU and FB-IoU, every episode within the episode contract);
      then `evaluate(args, pipe=...)` with the full-width bf16 pipeline at
-     512px, 1-shot, 16 batches at bsz 4 and at bsz 1: every batch's
+     512px, 1-shot, 8 batches at bsz 4 and at bsz 1: every batch's
      launches (34 flash, 94 + 94 GroupNorm under "xla") and its prediction
      bit for bit equal to a bare `predict` on the same batch; dispatch-ahead
      2 and 1 (and 2 with two loader workers) give identical metrics;
@@ -100,7 +120,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
      wall on the same batches, the loader's seconds per batch,
      `predict_async`'s host time, and one profiled run's device busy and
      idle share;
- 13. cached: cached-support serving at the same widths, bf16, 512px, under
+ 14. cached: cached-support serving at the same widths, bf16, 512px, under
      `vae_impl` "xla" and "auto": `precompute_supports` for a 1-shot and a
      5-shot (two padded) support set (33 flash launches each) and
      `predict_cached` at batch 4 and 1 (18 flash launches), each with exact
@@ -108,7 +128,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
      bf16 a repeat is bit-identical, padded shots' content changes no bit
      and a batch-1 cache equals its four copies; in f32 (TF32 off) cached
      equals the joint episode within one uint8 count;
- 14. serve: the serving daemon (`diffews_tpu_torch.cli.serve`) and the AOT
+ 15. serve: the serving daemon (`diffews_tpu_torch.cli.serve`) and the AOT
      serving artifact (`diffews_tpu_torch.serving`): (a) tiny f32 daemons
      from a port-written checkpoint on the card and on the CPU under
      `vae_impl` "xla" and "auto" (one-off, supports.add + cached, four
@@ -118,7 +138,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
      (34 flash, 94 + 94 GroupNorm) equal to a bare `predict`, supports.add
      (33 / 65 + 65), cached b4 and b1 requests (18 / 94 + 94) equal to
      `predict_cached`, bit for bit; load with `tools/cuda_serve_bench.py`
-     (16 clients x 3 (window 0) or 6 (window 30 ms) cached single-query
+     (16 clients x 2 (window 0) or 4 (window 30 ms) cached single-query
      requests, PNG and raw; depth 1 and 2; 4 clients x 6 one-off
      requests): q/s,
      `/v1/stats` p50 / p99, device-lock occupancy, one profile, the
@@ -129,14 +149,14 @@ Phases, each of which fails the run (non-zero exit) on any error:
      94 + 94 launches per call, equal to `predict` bit for bit, served by a
      daemon in artifact mode (supports.add 400), its wall against
      `predict`'s in turns;
- 15. train: the training step at the same widths (bf16 compute, f32
+ 16. train: the training step at the same widths (bf16 compute, f32
      masters, remat, AdamW): launches per micro-step (65 flash forward, 32
      dq, 32 dkv, 109 + 109 GroupNorm), step times at gas 1 and 4, peak
      memory, a profile (and the micro-step's forward and backward flash
      ms), the f32 kernel path against the dense path,
      padded-shot invariance of loss and gradients, and the attn-mask
      variant's decaying `conv_in_ref`;
- 16. train_cli: the training CLI (`diffews_tpu_torch.cli.train`) on a
+ 17. train_cli: the training CLI (`diffews_tpu_torch.cli.train`) on a
      synthetic COCO tree: (a) tiny f32 (TF32 off) runs from a checkpoint
      written by the port's savers, the card against the CPU (losses per
      step from `--metrics_jsonl` within rtol 1e-4, checkpoint-4's weights
@@ -155,7 +175,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
      and different from the base exactly at the adapted sites; (d)
      `tools/torch_train_capability.py` at the CI-bound 60 steps / 200 VAE
      steps / 16 episodes under its pass rule;
- 17. multi: multi-device serving and training (`diffews_tpu_torch.parallel`)
+ 18. multi: multi-device serving and training (`diffews_tpu_torch.parallel`)
      on the one card, each group of ranks started by `torchrun` (any
      rank's failure fails the run): (a) 2 ranks over gloo (its all_reduce
      takes CUDA tensors; NCCL refuses two ranks on one device), a
@@ -1515,6 +1535,278 @@ def phase_full(card):
         ("episode_1shot_b4", "one_shot_b4"), ("episode_1shot_b4_fused", "one_shot_b4_fused"),
         ("episode_1shot_b4_mixed", "one_shot_b4_mixed"),
         ("episode_1shot_b1_auto", "one_shot_b1_auto"))}
+
+
+# ---------------------------------------------------------------------------
+# phase depth: the depth head (`predict_depth`)
+# ---------------------------------------------------------------------------
+
+DEPTH_OUT_SIZE = (375, 500)  # a PASCAL-sized query: the bilinear resize's check
+DEPTH_RESIZE_TOL = 1e-6  # the card's resize against the CPU's on the same map
+
+
+def _depth_tiny(card):
+    """(a) tiny f32 (TF32 off) depth episodes, the card against the CPU,
+    under every `vae_impl` (int8 with the CPU's codes fed forward past
+    ties), with and without a resize: `helpers/depth_check.py`'s contract."""
+    import torch
+    from diffews_tpu_torch.checkpoint import random_pipeline_bundle
+    from diffews_tpu_torch.configs import (CLIPTextConfig, SchedulerConfig,
+                                           UNetConfig, VAEConfig)
+    from diffews_tpu_torch.models import vae
+    from diffews_tpu_torch.pipeline import DiffewsPipeline, depth_output
+    from helpers.depth_check import depth_close
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfgs = (UNetConfig.tiny(), VAEConfig.tiny(), CLIPTextConfig.tiny(),
+            SchedulerConfig.diffews())
+    out = {}
+    threshold = vae.MIXED_MIN_PIXELS
+    # "auto" at batch 1, 1 shot: 3 encoded images, the fused encode on the card
+    for vae_impl, b, n in (("xla", 2, 2), ("fused", 2, 2), ("mixed", 2, 2), ("auto", 1, 1),
+                           ("int8", 2, 2)):
+        vae.MIXED_MIN_PIXELS = 32 * 32 if vae_impl == "mixed" else threshold
+        try:
+            pipes = {dev: DiffewsPipeline(random_pipeline_bundle(*cfgs, seed=0), device=dev,
+                                          vae_impl=vae_impl) for dev in ("cpu", "cuda")}
+            q, sup, m = _episode(b, n, 32, seed=11)
+            sm = np.array([[True, False], [True, True]]) if n == 2 else None
+            for out_size in (None, (45, 37)):
+                call = lambda p: p.predict_depth_raw(q, sup, m, shot_mask=sm,
+                                                     out_size=out_size).cpu().numpy()
+                if vae_impl == "int8":
+                    raw_cpu, raw_gpu, stats, counts = _forced_tiny(pipes, call)
+                    check(max(d for _, d in stats) <= 1 and max(s for s, _ in stats) <= 1e-3,
+                          f"tiny depth int8: codes differ beyond ties: {stats}")
+                else:
+                    raw_cpu = call(pipes["cpu"])
+                    _zero_counts()
+                    raw_gpu = call(pipes["cuda"])
+                    counts = _launch_counts()
+                what = f"tiny depth card vs CPU ({vae_impl}, out_size {out_size})"
+                check(counts["flash_attention_fwd"] > 0, f"{what}: no flash launch: {counts}")
+                check((counts["fused_gn_silu_conv3x3"] > 0) == (vae_impl != "xla"
+                                                                and vae_impl != "int8"),
+                      f"{what}: fused launches {counts}")
+                check((counts["conv2d_int8"] > 0) == (vae_impl == "int8"),
+                      f"{what}: int8 launches {counts}")
+                stats, bad = depth_close(raw_gpu, raw_cpu, depth_output(raw_gpu),
+                                         depth_output(raw_cpu))
+                check(not bad, f"{what}: {bad}")
+                # the entry point itself on the card gives the same output
+                if vae_impl != "int8":
+                    full = pipes["cuda"].predict_depth(q, sup, m, shot_mask=sm,
+                                                       out_size=out_size)
+                    check(np.array_equal(full.depth_colored,
+                                         depth_output(raw_gpu).depth_colored),
+                          f"{what}: predict_depth differs from its raw map's output")
+                out[f"{vae_impl}_{'resized' if out_size else 'native'}"] = {
+                    **stats, "kernel_launches": counts}
+        finally:
+            vae.MIXED_MIN_PIXELS = threshold
+    return out
+
+
+def _depth_full(card):
+    """(b) full width, bf16, 512px, phase full's weights and episode."""
+    import torch
+    from diffews_tpu_torch.ops.resize import bilinear_resize
+    from diffews_tpu_torch.pipeline import DiffewsPipeline, depth_output
+
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    pipe = DiffewsPipeline(_full_bundle(), device="cuda", compute_dtype=torch.bfloat16)
+    q, sup, m = _episode(4, 1, 512, seed=2)
+    res, launches = {}, {}
+    same = lambda a, b: np.array_equal(a.depth_np, b.depth_np) and np.array_equal(
+        a.depth_colored, b.depth_colored)
+    for label, vae_impl, b, expect in (("depth_1shot_b4", "xla", 4, "xla"),
+                                       ("depth_1shot_b4_auto", "auto", 4, "xla"),
+                                       ("depth_1shot_b1_auto", "auto", 1, "auto_b1")):
+        pipe.vae_impl = vae_impl
+        args = (q[:b], sup[:b], m[:b])
+        got, rec = _timed_run(lambda: pipe.predict_depth(*args), same,
+                              EPISODE_LAUNCHES[expect], label, card)
+        launches[label] = rec["kernel_launches"]
+        check(got.depth_np.shape == (b, 512, 512) and got.depth_np.dtype == np.float32
+              and np.isfinite(got.depth_np).all() and got.depth_colored.shape == (b, 512, 512, 3),
+              f"{label}: depth {got.depth_np.shape} {got.depth_np.dtype}")
+        with torch.inference_mode():
+            raw = pipe.predict_depth_raw(*args)
+            raw2 = pipe.predict_depth_raw(*args)
+            x0 = pipe._x0_latent(*(pipe._put(x) for x in args), pipe.empty_text_embed, None, 1)
+            img = pipe.vae.decode(x0, attn_impl=pipe.attn_impl,
+                                  resnet_impl=pipe._decode_resnet_impl())
+            ref = img.float().mean(dim=-1).clamp(-1.0, 1.0) * 0.5 + 0.5
+        check(torch.equal(raw, raw2), f"{label}: a repeat of the raw map differs")
+        check(torch.equal(raw, ref), f"{label}: the raw map differs from the channel mean of "
+              "vae.decode(_x0_latent(...)) recomputed")
+        check(same(depth_output(raw.cpu().numpy()), got),
+              f"{label}: predict_depth differs from its raw map's host part")
+        rec.update({"raw_min": raw.min().item(), "raw_max": raw.max().item(),
+                    "depth_np_mean": float(got.depth_np.mean())})
+        res[label] = rec
+        emit({"phase": f"{label}_512px_bf16", **{k: v for k, v in rec.items() if k != "profile"}})
+
+    # the bilinear resize: the card's against the CPU function on the same map,
+    # and the entry point's out_size path against both
+    pipe.vae_impl = "xla"
+    with torch.inference_mode():
+        raw = pipe.predict_depth_raw(q, sup, m)
+        dev = bilinear_resize(raw[..., None], DEPTH_OUT_SIZE)[..., 0]
+        host = bilinear_resize(raw.cpu()[..., None], DEPTH_OUT_SIZE)[..., 0]
+        sized = pipe.predict_depth_raw(q, sup, m, out_size=DEPTH_OUT_SIZE)
+    rerr = (dev.cpu() - host).abs().max().item()
+    check(tuple(dev.shape) == (4,) + DEPTH_OUT_SIZE and rerr <= DEPTH_RESIZE_TOL,
+          f"bilinear resize on the card vs the CPU: {rerr} (tolerance {DEPTH_RESIZE_TOL})")
+    check(torch.equal(sized, dev), "predict_depth_raw(out_size) differs from the resize")
+    res["resize_375x500"] = {"max_abs_card_vs_cpu": rerr, "tolerance": DEPTH_RESIZE_TOL}
+
+    # 5-shot batch 1, shots 4 and 5 padded: their content changes no bit
+    q5, sup5, m5 = _episode(1, 5, 512, seed=3)
+    sm = np.array([[True, True, True, False, False]])
+    sup_o, m_o = sup5.copy(), m5.copy()
+    sup_o[:, 3:], m_o[:, 3:] = 255 - sup5[:, 3:], 1 - m5[:, 3:]
+    with torch.inference_mode():
+        a = pipe.predict_depth_raw(q5, sup5, m5, shot_mask=sm)
+        b = pipe.predict_depth_raw(q5, sup_o, m_o, shot_mask=sm)
+    check(torch.equal(a, b), "padded shots' content changed the bf16 depth map")
+    res["five_shot_2padded_b1"] = {"bf16_padded_content_invariant": True}
+
+    # walls: predict_depth against predict, in turns, three rounds each
+    walls = {"predict_depth": [], "predict": []}
+    calls = {"predict_depth": lambda: pipe.predict_depth(q, sup, m),
+             "predict": lambda: pipe.predict(q, sup, m, r_threshold=0.25)}
+    for rnd in range(3):
+        for name in (("predict_depth", "predict") if rnd % 2 == 0
+                     else ("predict", "predict_depth")):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            calls[name]()
+            torch.cuda.synchronize()
+            walls[name].append(time.time() - t0)
+    prof = {name: profile_episode(fn) for name, fn in calls.items()}
+    res["depth_vs_seg_b4"] = {
+        name: {"wall_s": walls[name], "wall_s_median": statistics.median(walls[name]),
+               "device_busy_ms": prof[name].get("device_busy_ms"),
+               "device_idle_share": prof[name].get("device_idle_share"),
+               "wall_ms_profiled": prof[name].get("wall_ms_profiled")}
+        for name in calls}
+    res["depth_vs_seg_b4"]["card"] = card
+    emit({"phase": "depth_vs_predict_1shot_b4_512px_bf16", **res["depth_vs_seg_b4"]})
+    return pipe, res, launches
+
+
+def _depth_utils(pipe, card, tmp):
+    """(c) the utils on the card: the batch sizer reads its memory, a
+    trace of one depth episode names the flash forward kernel, and the
+    stage timer waits for the card."""
+    import torch
+    from diffews_tpu_torch.utils import batchsize, profiling
+
+    q, sup, m = _episode(4, 1, 512, seed=2)
+    gib = batchsize.device_memory_gib("cuda")
+    bs = {res: {dt: batchsize.find_batch_size(100, res, bf16=dt == "bf16")
+                for dt in ("bf16", "f32")} for res in (512, 768)}
+    want = {512: {"bf16": 48, "f32": 24}, 768: {"bf16": 20, "f32": 10}}
+    check(gib >= 32 and bs == want, f"find_batch_size on a {gib:.1f} GiB card: {bs}, "
+          f"expected the 32 GiB row {want}")
+    logdir = os.path.join(tmp, "trace")
+    with profiling.trace(logdir):
+        with profiling.annotate("depth_episode"):
+            pipe.predict_depth(q, sup, m)
+    files = [os.path.join(logdir, f) for f in os.listdir(logdir)]
+    text = "".join(open(f).read() for f in files)
+    check(len(files) == 1 and "flash_fwd" in text and "depth_episode" in text,
+          f"profiling.trace wrote {files} without the flash forward kernel or the annotation")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    torch.cuda._sleep(10 ** 8)
+    torch.cuda.synchronize()
+    cycles = int(0.3 * 10 ** 8 / (time.time() - t0))  # about 0.3 s of device time
+    timers = {}
+    for sync in (True, False):
+        st = profiling.StageTimer(sync=sync, device="cuda")
+        with st.stage("spin"):
+            torch.cuda._sleep(cycles)
+        timers[sync] = st.totals["spin"]
+        torch.cuda.synchronize()
+    check(timers[True] >= 0.2 > timers[False],
+          f"StageTimer: {timers[True]:.3f} s with sync, {timers[False]:.3f} s without, "
+          "for about 0.3 s of device work")
+    return {"device_memory_gib": gib, "find_batch_size": bs, "trace_bytes": len(text),
+            "stage_timer_s": {"sync": timers[True], "no_sync": timers[False]}, "card": card}
+
+
+def _depth_clis(tmp, card):
+    """(d) the port's CLIs on the card on a tiny tree: verify_parity
+    --skip_golden's mIoU equals the eval CLI's on the same protocol, and
+    measure_baseline --subject self times the eval CLI."""
+    import contextlib
+    import io
+
+    import torch
+    from diffews_tpu_torch.cli import evaluate, measure_baseline, verify_parity
+    from diffews_tpu_torch.configs import (CLIPTextConfig, SchedulerConfig,
+                                           UNetConfig, VAEConfig)
+    from helpers.port_checkpoint import write_checkpoint
+    from helpers.synthetic_data import make_coco
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    data = os.path.join(tmp, "data")
+    make_coco(data)
+    ckpt = write_checkpoint(os.path.join(tmp, "tiny_ckpt"), UNetConfig.tiny(), VAEConfig.tiny(),
+                            CLIPTextConfig.tiny(), SchedulerConfig.diffews(), seed=0)
+    proto = ["--checkpoint", ckpt, "--datapath", data, "--benchmark", "coco", "--fold", "0",
+             "--nshot", "1", "--img-size", "32", "--max_episodes", "8", "--device", "cuda"]
+    vp_args = verify_parity.build_parser().parse_args(proto + ["--out", os.path.join(tmp, "vp"),
+                                                               "--skip_golden"])
+    t0 = time.time()
+    rc = verify_parity.main(proto + ["--out", os.path.join(tmp, "vp"), "--skip_golden"])
+    vp_s = time.time() - t0
+    with open(os.path.join(tmp, "vp", "parity_report.json")) as f:
+        report = json.load(f)
+    miou, fb = evaluate.main(verify_parity.eval_argv(vp_args))
+    check(rc == 0 and report["golden"]["status"] == "skipped"
+          and report["miou"] == round(miou, 4) and report["fb_iou"] == round(fb, 4),
+          f"verify_parity (rc {rc}) reported {report.get('miou')} / {report.get('fb_iou')}, "
+          f"the eval CLI {miou} / {fb}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = measure_baseline.main(["--subject", "self", "--checkpoint", ckpt, "--datapath", data,
+                                    "--img-size", "32", "--max_episodes", "60",
+                                    "--log-root", os.path.join(tmp, "mb"), "--timeout", "300",
+                                    "--device", "cuda"])
+    rec = json.loads(buf.getvalue().strip().splitlines()[-1])
+    check(rc == 0 and rec["markers"] >= 2 and rec["qps"] > 0,
+          f"measure_baseline --subject self: rc {rc}, {rec}")
+    return {"verify_parity": {"miou": report["miou"], "fb_iou": report["fb_iou"],
+                              "eval_cli_miou": miou, "eval_cli_fb_iou": fb, "seconds": vp_s},
+            "measure_baseline_self": rec, "card": card}
+
+
+def phase_depth(card):
+    """The depth head on the card: (a) tiny card vs CPU, (b) full width,
+    (c) the utils, (d) the port's CLIs."""
+    import tempfile
+
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    res = {"tiny": _depth_tiny(card)}
+    emit({"phase": "depth_tiny_card_vs_cpu", "dtype": "float32", "tf32": False, **res["tiny"]})
+    pipe, res["full"], launches = _depth_full(card)
+    with tempfile.TemporaryDirectory() as tmp:
+        res["utils"] = _depth_utils(pipe, card, tmp)
+        emit({"phase": "depth_utils_on_the_card", **res["utils"]})
+        del pipe
+        torch.cuda.empty_cache()
+        res["clis"] = _depth_clis(tmp, card)
+        emit({"phase": "depth_port_clis_on_the_card", **res["clis"]})
+    RESULTS["depth"] = res
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -3770,7 +4062,8 @@ def phase_multi(card, work):
 
 def kernel_record(rows, bwd_rows, norm_rows, fused_rows, down_rows, episode_launches,
                   train_launches, cached_launches, down_launches, eval_launches,
-                  serve_launches, train_cli_launches, multi_launches, int8_rows, int8_launches):
+                  serve_launches, train_cli_launches, multi_launches, int8_rows, int8_launches,
+                  depth_launches):
     """One entry per kernel.  `launches` is the count on the path of the
     slice that ported it (the training micro-step for the flash kernels,
     the default episode for the GroupNorm kernels, the `vae_impl="fused"`
@@ -3787,7 +4080,8 @@ def kernel_record(rows, bwd_rows, norm_rows, fused_rows, down_rows, episode_laun
              and r["dtype"] == "bfloat16"][0]
     dmain = [r for r in down_rows
              if tuple(r["shape"]) == DOWN_MAIN_SHAPE and r["dtype"] == "bfloat16"][0]
-    paths = dict(episode_launches, **int8_launches, **cached_launches, **eval_launches,
+    paths = dict(episode_launches, **depth_launches, **int8_launches, **cached_launches,
+                 **eval_launches,
                  **serve_launches, **train_cli_launches, **multi_launches,
                  train_micro_step_1shot_b1=train_launches,
                  downsample_conv2x_encoder_inputs_b12=down_launches)
@@ -3930,7 +4224,7 @@ def kernel_record(rows, bwd_rows, norm_rows, fused_rows, down_rows, episode_laun
     return {"kernels": out}
 
 
-PHASES = ("device,build,kernel,bwd,norm,fused,downsample,tiny,tiny_train,full,int8,eval,"
+PHASES = ("device,build,kernel,bwd,norm,fused,downsample,tiny,tiny_train,full,depth,int8,eval,"
           "cached,serve,train,train_cli,multi")
 
 
@@ -3979,6 +4273,7 @@ def main():
     run("tiny", phase_tiny)
     run("tiny_train", phase_tiny_train)
     episode_launches = run("full", phase_full, card)
+    depth_launches = run("depth", phase_depth, card)
     int8_rows, int8_launches = run("int8", phase_int8, card, default=([], None))
     eval_launches = run("eval", phase_eval, card)
     cached_launches = run("cached", phase_cached, card)
@@ -4005,7 +4300,7 @@ def main():
     emit(kernel_record(rows, bwd_rows, norm_rows, fused_rows, down_rows, episode_launches,
                        train_launches, cached_launches, down_launches, eval_launches,
                        serve_launches, train_cli_launches, multi_launches, int8_rows,
-                       int8_launches))
+                       int8_launches, depth_launches))
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
 

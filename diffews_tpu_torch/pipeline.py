@@ -15,6 +15,11 @@ Port of `diffews_tpu/pipeline.py`'s main path (`pipeline.py:399-499,
   5. VAE decode, clip, [0, 255] and truncation to uint8;
   6. the relative (or absolute) threshold, on the host or on the device.
 
+The depth head (`predict_depth`, JAX `pipeline.py:567-579,795-837`) runs
+steps 1-4, decodes, and takes the decoded image's channel mean, clipped to
+[-1, 1] and mapped to [0, 1]; it is bilinear-resized on the device, then
+min-max normalised per row and colourised on the host.
+
 Repeated-support serving: `precompute_supports` runs steps 1-3 for a
 support set once, with a zero dummy query, and keeps every self-attention
 site's support K/V in a `SupportCache`; `predict_cached` then runs the
@@ -62,9 +67,10 @@ from diffews_tpu_torch.configs import UNetConfig, VAEConfig
 from diffews_tpu_torch.models import clip_text
 from diffews_tpu_torch.parallel import mesh as mesh_lib
 from diffews_tpu_torch.ops import quant
-from diffews_tpu_torch.ops.resize import nearest_resize
+from diffews_tpu_torch.ops.resize import bilinear_resize, nearest_resize
 from diffews_tpu_torch.scheduler import DDIMScheduler
 from diffews_tpu_torch.utils import to_device
+from diffews_tpu_torch.utils.image import colorize_depth_maps
 
 VAE_IMPLS = ("xla", "fused", "mixed", "auto", "int8")
 # the JAX CLIs' --attn_impl choices -> the pipeline's attn_impl
@@ -77,6 +83,15 @@ class SegOutput:
 
     seg_colored: np.ndarray  # (B, H, W, 3) uint8
     mask: Optional[np.ndarray] = None  # (B, H, W) bool, if thresholding requested
+    uncertainty: Optional[np.ndarray] = None
+
+
+@dataclasses.dataclass
+class DepthOutput:
+    """Counterpart of `MarigoldDepthOutput` (pipeline `:44-63`)."""
+
+    depth_np: np.ndarray  # (B, H, W) float32 in [0, 1]
+    depth_colored: Optional[np.ndarray] = None  # (B, H, W, 3) uint8
     uncertainty: Optional[np.ndarray] = None
 
 
@@ -353,6 +368,13 @@ class DiffewsPipeline:
         img = (img * 0.5 + 0.5) * 255.0
         return img.clamp(0.0, 255.0).to(torch.uint8)
 
+    def _decode_depth(self, x0: torch.Tensor) -> torch.Tensor:
+        """VAE decode -> channel mean -> clip(-1, 1) -> [0, 1], in JAX's
+        order (`pipeline.py:574-579`): (B, H, W) float32."""
+        img = self.vae.decode(x0, attn_impl=self.attn_impl,
+                              resnet_impl=self._decode_resnet_impl())
+        return img.float().mean(dim=-1).clamp(-1.0, 1.0) * 0.5 + 0.5
+
     def _put(self, x) -> torch.Tensor:
         return to_device(torch.as_tensor(x), self.device)
 
@@ -371,6 +393,13 @@ class DiffewsPipeline:
         (B, N, H, W, 3) in [-1, 1]; shot_mask: optional (B, N) bool.
         mask_on_device: run the threshold on the device
         (`device_mask_from_seg`)."""
+        x0 = self._episode_x0(query, supports, support_masks, shot_mask, denoising_steps)
+        return self._pending(x0, out_size, r_threshold, threshold, mask_on_device)
+
+    def _episode_x0(self, query, supports, support_masks, shot_mask,
+                    denoising_steps) -> torch.Tensor:
+        """The episode's x0 latent of this rank's rows (over "data") and
+        shots (over "shots"), queued on the device."""
         query = _to_nhwc(np.asarray(query), 4)
         supports = _to_nhwc(np.asarray(supports), 5)
         masks = _masks_nhwc(support_masks)
@@ -381,16 +410,14 @@ class DiffewsPipeline:
                                  f"{n}; pad with shot_mask")
             if shot_mask is None:
                 shot_mask = np.ones((b, n), bool)
-        # this rank's rows (over "data") and shots (over "shots")
         rs = mesh_lib.rows(b, self._n_data, self._data_rank, "episode batch")
         ss = mesh_lib.rows(n, self._n_shots, self._shot_rank, "n-shot")
         if shot_mask is not None:
             shot_mask = np.asarray(shot_mask, bool)[rs, ss]
-        x0 = self._x0_latent(
+        return self._x0_latent(
             self._put(query[rs]), self._put(supports[rs, ss]), self._put(masks[rs, ss]),
             self.empty_text_embed, self._put_shot_mask(shot_mask), denoising_steps,
             shot_group=self._shot_group)
-        return self._pending(x0, out_size, r_threshold, threshold, mask_on_device)
 
     def _put_shot_mask(self, shot_mask) -> Optional[torch.Tensor]:
         return None if shot_mask is None else self._put(np.asarray(shot_mask, bool))
@@ -484,24 +511,57 @@ class DiffewsPipeline:
           threshold: absolute threshold on mean_RGB in [0, 1]."""
         return self.predict_async(*args, **kw).result()
 
+    @torch.inference_mode()
+    def predict_depth_raw(self, query, supports, support_masks, *, shot_mask=None,
+                          denoising_steps: int = 1,
+                          out_size: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+        """The depth head's map before normalisation, queued on the device:
+        (B, H, W) float32 in [0, 1], the whole batch on every rank of a
+        data mesh, bilinear-resized to `out_size`.  Arguments as in
+        `predict_async`."""
+        x0 = self._episode_x0(query, supports, support_masks, shot_mask, denoising_steps)
+        depth = self._decode_depth(x0)
+        if self._data_group is not None:
+            depth = mesh_lib.all_gather_rows(depth, self._data_group)
+        if out_size is not None and tuple(depth.shape[1:3]) != tuple(out_size):
+            depth = bilinear_resize(depth[..., None], tuple(out_size))[..., 0]
+        return depth
+
+    def predict_depth(self, query, supports, support_masks, *, shot_mask=None,
+                      denoising_steps: int = 1, out_size: Optional[Tuple[int, int]] = None,
+                      colorize: bool = True, ensemble: Optional[np.ndarray] = None
+                      ) -> DepthOutput:
+        """Depth-mode prediction (the reference pipeline's mode="depth"):
+        `predict_depth_raw`'s map, min-max normalised per row on the host
+        (`pipeline:531-537`) and, with `colorize`, mapped through the
+        Spectral colormap to uint8 (`:553-561`).  `ensemble` is accepted
+        and not read, as in the JAX package."""
+        d = self.predict_depth_raw(query, supports, support_masks, shot_mask=shot_mask,
+                                   denoising_steps=denoising_steps, out_size=out_size)
+        return depth_output(d.cpu().numpy(), colorize)  # the synchronisation point
+
     def __call__(self, input_images, denoising_steps: int = 1, ensemble_size: int = 1,
                  processing_res: int = 512, match_input_res: bool = True,
                  batch_size: int = 0, show_progress_bar: bool = False,
-                 mode: str = "seg", rgb_paths=(), seed=None) -> SegOutput:
+                 mode: str = "seg", rgb_paths=(), seed=None):
         """Reference-pipeline-compatible entry.  `input_images` = [support
         images (B*N, 3, H, W), query (B, 3, H, W), support masks (B*N, 3, H,
-        W)] in [-1, 1] (`main_oss.py:106-123`).  Seg mode only; the single
-        pass equals the reference's deterministic ensemble mean."""
-        if mode not in ("seg", "semseg"):
+        W)] in [-1, 1] (`main_oss.py:106-123`).  mode "seg"/"semseg" returns
+        a `SegOutput`, "depth" a `DepthOutput`; the single pass equals the
+        reference's deterministic ensemble mean."""
+        if mode not in ("seg", "semseg", "depth"):
             raise NotImplementedError(
-                f"mode={mode!r}: only seg/semseg is ported (the depth head is "
-                "ROADMAP A13)")
+                f"mode={mode!r}: supported modes are seg/semseg/depth (sr/normal/feature "
+                "belong to the vestigial Marigold pipeline)")
         sup, qry, msk = (np.asarray(x) for x in input_images)
         b = qry.shape[0]
         n = sup.shape[0] // b
         sup = sup.reshape((b, n) + sup.shape[1:])
         msk = msk.reshape((b, n) + msk.shape[1:])
         out_size = tuple(qry.shape[-2:]) if match_input_res else None
+        if mode == "depth":
+            return self.predict_depth(qry, sup, msk, denoising_steps=denoising_steps,
+                                      out_size=out_size)
         return self.predict(qry, sup, msk, denoising_steps=denoising_steps,
                             out_size=out_size)
 
@@ -518,6 +578,22 @@ def device_mask_from_seg(img_u8: torch.Tensor, thr: float, relative: bool) -> to
     else:
         t = torch.full((p.shape[0],), thr, dtype=torch.float32, device=p.device)
     return pm > t[:, None, None]
+
+
+def depth_output(depth: np.ndarray, colorize: bool = True) -> DepthOutput:
+    """The depth head's host part (JAX `pipeline.py:826-836`): each row of
+    the (B, H, W) map min-max normalised in float32 (range floored at
+    1e-8), and with `colorize` the Spectral colormap as uint8."""
+    d = np.asarray(depth, dtype=np.float32)
+    dmin = d.reshape(d.shape[0], -1).min(axis=1)[:, None, None]
+    dmax = d.reshape(d.shape[0], -1).max(axis=1)[:, None, None]
+    d = np.clip((d - dmin) / np.maximum(dmax - dmin, 1e-8), 0, 1)
+    colored = None
+    if colorize:
+        colored = np.stack([
+            (colorize_depth_maps(di, 0, 1)[0].transpose(1, 2, 0) * 255).astype(np.uint8)
+            for di in d])
+    return DepthOutput(depth_np=d, depth_colored=colored)
 
 
 class PendingSeg:

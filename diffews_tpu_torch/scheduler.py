@@ -1,22 +1,25 @@
-"""DDIM scheduler with extended beta ranges (betas >= 1 allowed).
+"""DDIM and DDPM schedulers with extended beta ranges (betas >= 1 allowed).
 
-Port of `diffews_tpu/scheduler.py` (`make_betas`, `inference_timesteps`,
-`DDIMScheduler.set_timesteps/step`, `scheduler.py:40-210`).  Beta tables
-are host-side NumPy constants and timesteps are Python ints; `step` applies
-the general epsilon / sample / v-prediction formulas to tensors.  For the
-shipped DiffewS config (beta_start = beta_end = 1.0, v-prediction) they
-reduce to `pred_original_sample = -model_output`, `prev_sample = sample`.
+Port of `diffews_tpu/scheduler.py`: `make_betas`, `inference_timesteps`,
+`DDIMScheduler` (`set_timesteps`, `step`, and the training helpers
+`add_noise` / `get_velocity`), `DDPMScheduler` and `from_pretrained`.  Beta
+tables are host-side NumPy constants and timesteps are Python ints; `step`
+applies the general epsilon / sample / v-prediction formulas to tensors.
+For the shipped DiffewS config (beta_start = beta_end = 1.0, v-prediction)
+they reduce to `pred_original_sample = -model_output`, `prev_sample =
+sample`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from diffews_tpu_torch.configs import SchedulerConfig
+from diffews_tpu_torch.configs import SchedulerConfig, load_json_config
 
 
 class SchedulerStepOutput(NamedTuple):
@@ -159,3 +162,71 @@ class DDIMScheduler:
         s = torch.quantile(flat, cfg.dynamic_thresholding_ratio, dim=1)
         s = s.clamp(1.0, cfg.sample_max_value).reshape((b,) + (1,) * (sample.ndim - 1))
         return sample.clamp(-s, s) / s
+
+    # -- training ----------------------------------------------------------
+
+    def add_noise(self, original: torch.Tensor, noise: torch.Tensor,
+                  timestep: int) -> torch.Tensor:
+        a = self._alpha_bar(int(timestep))
+        return (a ** 0.5) * original + ((1 - a) ** 0.5) * noise
+
+    def get_velocity(self, sample: torch.Tensor, noise: torch.Tensor,
+                     timestep: int) -> torch.Tensor:
+        a = self._alpha_bar(int(timestep))
+        return (a ** 0.5) * noise - ((1 - a) ** 0.5) * sample
+
+
+@dataclasses.dataclass
+class DDPMScheduler(DDIMScheduler):
+    """DDPM ancestral sampler on the same beta families (JAX
+    `scheduler.py:233-290`); not on the DiffewS eval path."""
+
+    def set_timesteps(self, num_inference_steps: int) -> np.ndarray:
+        self.num_inference_steps = num_inference_steps
+        step_ratio = self.config.num_train_timesteps // num_inference_steps
+        self.timesteps = (np.arange(0, num_inference_steps) * step_ratio).round()[::-1].astype(
+            np.int64)
+        return self.timesteps
+
+    def step(self, model_output: torch.Tensor, timestep: int, sample: torch.Tensor,
+             eta: float = 0.0, noise: Optional[torch.Tensor] = None) -> SchedulerStepOutput:
+        """One ancestral step; `noise` adds the posterior variance (for
+        t > 0).  `eta` is accepted and not read, as in the JAX package."""
+        cfg = self.config
+        t = int(timestep)
+        prev_t = t - cfg.num_train_timesteps // (self.num_inference_steps
+                                                 or cfg.num_train_timesteps)
+        alpha_prod_t = self._alpha_bar(t)
+        alpha_prod_t_prev = self._alpha_bar(prev_t)
+        beta_prod_t = 1 - alpha_prod_t
+        beta_prod_t_prev = 1 - alpha_prod_t_prev
+        current_alpha_t = alpha_prod_t / max(alpha_prod_t_prev, 1e-20)
+        current_beta_t = 1 - current_alpha_t
+        if cfg.prediction_type == "epsilon":
+            pred_original = (sample - beta_prod_t ** 0.5 * model_output) / max(
+                alpha_prod_t ** 0.5, 1e-20)
+        elif cfg.prediction_type == "sample":
+            pred_original = model_output
+        elif cfg.prediction_type == "v_prediction":
+            pred_original = (alpha_prod_t ** 0.5) * sample - (beta_prod_t ** 0.5) * model_output
+        else:
+            raise ValueError(cfg.prediction_type)
+        if cfg.clip_sample:
+            pred_original = pred_original.clamp(-cfg.clip_sample_range, cfg.clip_sample_range)
+        pred_original_coeff = (alpha_prod_t_prev ** 0.5 * current_beta_t) / max(beta_prod_t,
+                                                                               1e-20)
+        current_sample_coeff = current_alpha_t ** 0.5 * beta_prod_t_prev / max(beta_prod_t,
+                                                                              1e-20)
+        prev_sample = pred_original_coeff * pred_original + current_sample_coeff * sample
+        if t > 0 and noise is not None:
+            variance = beta_prod_t_prev / max(beta_prod_t, 1e-20) * current_beta_t
+            prev_sample = prev_sample + max(variance, 0.0) ** 0.5 * noise
+        return SchedulerStepOutput(prev_sample, pred_original)
+
+
+def from_pretrained(path: str) -> DDIMScheduler:
+    """A DDIM scheduler from a diffusers scheduler directory (its
+    `scheduler_config.json`) or from that JSON file."""
+    if os.path.isdir(path):
+        path = os.path.join(path, "scheduler_config.json")
+    return DDIMScheduler(SchedulerConfig.from_diffusers_dict(load_json_config(path)))

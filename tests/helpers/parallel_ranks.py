@@ -10,8 +10,9 @@ Modes, each on a ("data",) mesh of the whole world:
     on its rows of the global batch and its images' noise; the losses,
     grad norms and whole parameters after each step, and the shapes of the
     FSDP state's leaves;
-  - serve: the episode `predict` and the support cache (`precompute_supports`
-    at batch 1 and 4, `predict_cached`) under the data mesh; and the step
+  - serve: the episode `predict`, the support cache (`precompute_supports`
+    at batch 1 and 4, `predict_cached`) and the depth head's raw map
+    (`predict_depth_raw`) under the data mesh; and the step
     at which `StopVote` stops each rank when rank 1 alone raises its stop
     flag from step 2 on;
   - ckpt (two nodes of one rank): an FSDP state with set values written
@@ -104,6 +105,8 @@ def _serve(inp, mesh, res):
     for cb in (1, 4):
         cache = pipe.precompute_supports(e["sup"][:cb], e["msk"][:cb], shot_mask=e["sm"][:cb])
         res[f"cached_b{cb}"] = pipe.predict_cached(e["q"], cache).seg_colored
+    res["depth_b4n2"] = pipe.predict_depth_raw(e["q"], e["sup"], e["msk"],
+                                               shot_mask=e["sm"]).numpy()
 
 
 def _ckpt(inp, mesh, out_dir, res):

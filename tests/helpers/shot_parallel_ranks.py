@@ -11,7 +11,8 @@ JAX package, and writes the results to `<out_dir>/rank<r>.pt`:
     plain version) with no mask, padded shots (whole ranks padded) and the
     attn-mask support bias, and the dense path's gradients with respect to
     the local support K/V; the tiny UNet's joint forward, plain and under
-    the attn-mask variant; the episode `predict` and its n-shot error;
+    the attn-mask variant; the episode `predict`, the depth head's raw map
+    (`predict_depth_raw`) and the n-shot error;
   - ("data", "shots"): the episode `predict`.
 """
 
@@ -80,6 +81,8 @@ def _pipeline(inp, mesh, key, res):
     out = pipe.predict(e["q"], e["sup"], e["msk"], shot_mask=e["sm"], r_threshold=0.25)
     res[key] = torch.from_numpy(out.seg_colored)
     if key == "episode_shots":
+        res["depth_shots"] = pipe.predict_depth_raw(e["q"], e["sup"], e["msk"],
+                                                    shot_mask=e["sm"]).numpy()
         try:
             pipe.predict(e["q"], e["sup"][:, :3], e["msk"][:, :3], r_threshold=0.25)
         except ValueError as err:

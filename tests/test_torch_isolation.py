@@ -1,9 +1,11 @@
-"""The port stands alone: `diffews_tpu_torch/` (`parallel/` included),
-`chip_smoke.py`, the kernel A/B tools (`tools/cuda_*.py`), the port's
-other tools (`tools/torch_*.py`) and the scripts the tests start as torch
+"""The port stands alone: `diffews_tpu_torch/` (`parallel/` and the CLIs
+included), `chip_smoke.py`, the kernel A/B tools (`tools/cuda_*.py`), the
+port's other tools (`tools/torch_*.py`), its example
+(`examples/torch/serve_client.py`) and the scripts the tests start as torch
 ranks (`tests/helpers/*_ranks.py`) import neither `jax`, `flax`, `optax`,
-`safetensors` nor the JAX package; the pipeline refuses to fall back to the
-CPU on a host without a CUDA device, and so does a "cuda" mesh."""
+`safetensors`, `matplotlib` (the card's host has none) nor the JAX package;
+the pipeline refuses to fall back to the CPU on a host without a CUDA
+device, and so do a "cuda" mesh and the batch sizer."""
 
 import ast
 import os
@@ -17,21 +19,25 @@ import torch
 from helpers.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "flax", "optax", "safetensors", "matplotlib", "diffews_tpu")
 
 
 def _port_sources():
     files = (sorted((ROOT / "diffews_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
              + sorted((ROOT / "tools").glob("cuda_*.py"))
              + sorted((ROOT / "tools").glob("torch_*.py"))
+             + [ROOT / "examples" / "torch" / "serve_client.py"]
              + sorted((ROOT / "tests" / "helpers").glob("*_ranks.py")))
     assert len(files) > 10
-    assert ROOT / "diffews_tpu_torch" / "parallel" / "mesh.py" in files
+    for rel in ("parallel/mesh.py", "cli/launcher.py", "cli/measure_baseline.py",
+                "cli/verify_parity.py", "cli/prepare.py", "utils/image.py"):
+        assert ROOT / "diffews_tpu_torch" / rel in files
     return files
 
 
 def _forbidden(name: str) -> bool:
     return any(name == top or name.startswith(top + ".")
-               for top in ("jax", "flax", "optax", "safetensors", "diffews_tpu"))
+               for top in FORBIDDEN)
 
 
 def test_no_jax_or_reference_imports_in_port_sources():
@@ -61,8 +67,17 @@ def test_importing_the_port_loads_no_jax():
             "import diffews_tpu_torch.training.lora, diffews_tpu_torch.training.checkpoints\n"
             "import diffews_tpu_torch.cli.train, diffews_tpu_torch.cli.surgery\n"
             "import diffews_tpu_torch.parallel.mesh\n"
-            "bad = [m for m in sys.modules if any(m == t or m.startswith(t + '.')\n"
-            "       for t in ('jax', 'flax', 'optax', 'safetensors', 'diffews_tpu'))]\n"
+            "import diffews_tpu_torch.cli.launcher, diffews_tpu_torch.cli.measure_baseline\n"
+            "import diffews_tpu_torch.cli.verify_parity, diffews_tpu_torch.cli.prepare\n"
+            "import diffews_tpu_torch.data.tokenizer, diffews_tpu_torch.scheduler\n"
+            "import diffews_tpu_torch.ops.resize, diffews_tpu_torch.utils.image\n"
+            "import diffews_tpu_torch.utils.seeding, diffews_tpu_torch.utils.ensemble\n"
+            "import diffews_tpu_torch.utils.batchsize, diffews_tpu_torch.utils.profiling\n"
+            "import numpy as np\n"
+            "from diffews_tpu_torch.utils.image import colorize_depth_maps\n"
+            "colorize_depth_maps(np.zeros((2, 2), np.float32), 0, 1)\n"
+            f"bad = [m for m in sys.modules if any(m == t or m.startswith(t + '.')\n"
+            f"       for t in {FORBIDDEN!r})]\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -94,6 +109,17 @@ def test_cuda_mesh_without_a_device_raises_on_a_cpu_host(monkeypatch):
         with pytest.raises(RuntimeError, match="CUDA device"):
             make()
     assert not torch.distributed.is_initialized()
+
+
+def test_batch_sizer_without_device_memory_raises(monkeypatch):
+    """The batch sizer reads the card's memory and assumes none: with no
+    CUDA device and no `hbm_gib` it raises."""
+    from diffews_tpu_torch.utils.batchsize import find_batch_size
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="hbm_gib"):
+        find_batch_size(8, 512)
+    assert find_batch_size(8, 512, hbm_gib=80) == 8
 
 
 def test_chip_smoke_fails_without_a_card():

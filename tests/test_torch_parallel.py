@@ -17,6 +17,8 @@ The torch side runs as 2 gloo ranks on the CPU (`helpers/torch_ranks.py`,
   - `predict` and `predict_cached` (batch-1 and batch-4 caches) under the
     data mesh against JAX's `predict` / `predict_cached`, within one uint8
     count on < 1% of pixels;
+  - the depth head's raw map under the data mesh against JAX's unsharded
+    depth head, within `helpers/depth_check.py`'s contract;
   - the preemption vote: every rank stops one step after the first flag;
   - two "hosts" of one rank each (mirroring `tests/test_multihost.py`): an
     FSDP state written sharded equals the same state written unsharded,
@@ -42,9 +44,12 @@ from diffews_tpu_torch.checkpoint import state_dict_from_jax
 from diffews_tpu_torch.parallel import mesh as M
 from diffews_tpu_torch.training import checkpoints as tck
 from diffews_tpu_torch.training import state as tstate
+from diffews_tpu_torch import pipeline as TP
+from helpers.depth_check import depth_close
 from helpers.parallel_ranks import MIN_ELEMS, set_values
 from helpers.torch_ranks import run_ranks
 from helpers.torch_threads import one_torch_thread  # noqa: F401  (autouse)
+from test_torch_depth import _jax_raw, _mask3
 from test_torch_training import _trainer_cfgs, episode_batch, models, n_images  # noqa: F401
 
 SCRIPT = "tests/helpers/parallel_ranks.py"
@@ -222,6 +227,29 @@ def test_data_mesh_predict_and_cache_match_jax(case):
         for key, w in want.items():
             assert res[key].shape == w.shape, (r, key)
             _uint8_close(np.asarray(res[key]), w, f"rank {r} {key}")
+
+
+def test_data_mesh_depth_matches_jax(case):
+    """The depth head's raw map under the data mesh (batch 4, 2 shots, one
+    padded): every rank returns the whole batch, within the depth head's
+    contract (`helpers/depth_check.py`) of JAX's unsharded depth head on
+    the same episode, and of the one-process port."""
+    inp = case["inp"]
+    e = inp["episodes"]["b4n2"]
+    jax_raw = _jax_raw(_jax_pipe(case["models"]), e["q"], e["sup"], _mask3(e["msk"]), e["sm"],
+                       None)
+    bundle = TC.random_pipeline_bundle(TCF.UNetConfig.tiny(), TCF.VAEConfig.tiny(), None,
+                                       TCF.SchedulerConfig.diffews())
+    bundle.unet.load_state_dict(inp["unet_sd"])
+    bundle.vae.load_state_dict(inp["vae_sd"])
+    one = TP.DiffewsPipeline(bundle, device="cpu").predict_depth_raw(
+        e["q"], e["sup"], e["msk"], shot_mask=e["sm"]).numpy()
+    for r, res in enumerate(case["ranks"]["train"]):
+        got = res["depth_b4n2"]
+        assert got.shape == jax_raw.shape == one.shape == (4, 32, 32), r
+        for what, want in (("jax", jax_raw), ("one process", one)):
+            _, bad = depth_close(got, want, TP.depth_output(got), TP.depth_output(want))
+            assert not bad, (r, what, bad)
 
 
 def test_stop_vote_agrees_one_step_late(case):

@@ -22,6 +22,7 @@ from diffews_tpu_torch.models import vae as TV
 from diffews_tpu_torch import checkpoint as TC
 from diffews_tpu_torch import configs as TCF
 from diffews_tpu_torch import pipeline as TP
+from helpers.depth_check import depth_close
 from helpers.int8_ties import assert_forced_episode, int8_parity
 from helpers.jax_checkpoint import tiny_params
 from helpers.torch_threads import one_torch_thread  # noqa: F401  (autouse)
@@ -126,8 +127,14 @@ def test_reference_call_contract(pipes):
     want = pipes["jax"]([sup_f, q_f, m_f])
     got = pipes["torch"]([sup_f, q_f, m_f])
     _uint8_close(got.seg_colored, want.seg_colored)
+    # mode="depth" is ported: JAX's depth output within the depth head's
+    # contract (`helpers/depth_check.py`); modes outside seg/depth raise
+    want_d = pipes["jax"]([sup_f, q_f, m_f], mode="depth")
+    got_d = pipes["torch"]([sup_f, q_f, m_f], mode="depth")
+    _, bad = depth_close(got_d.depth_np, want_d.depth_np, got_d, want_d)
+    assert not bad, bad
     with pytest.raises(NotImplementedError):
-        pipes["torch"]([sup_f, q_f, m_f], mode="depth")
+        pipes["torch"]([sup_f, q_f, m_f], mode="sr")
 
 
 @pytest.mark.parametrize("relative,thr", [(True, 0.25), (True, 0.7), (False, 0.45)])

@@ -10,7 +10,9 @@ rank) and a 2 x 2 ("data", "shots") mesh.  The JAX side runs the op under
 pipeline unsharded (`tests/test_shot_parallel.py` holds JAX's sharded
 UNet and pipeline equal to them).  Tolerances are that file's: the op to
 2e-5 (gradients 1e-4), the UNet to 5e-4, the episode's uint8 image within
-one count (on < 1% of pixels, the port's episode contract).
+one count (on < 1% of pixels, the port's episode contract), the depth
+head's raw map within `helpers/depth_check.py`'s contract of JAX's
+unsharded depth head.
 """
 
 import jax
@@ -27,9 +29,13 @@ from diffews_tpu.configs import CLIPTextConfig, SchedulerConfig, UNetConfig, VAE
 from diffews_tpu.models import unet as JU
 from diffews_tpu.ops.attention import fused_kv_attention, shot_parallel_fused_kv_attention
 from diffews_tpu_torch import checkpoint as TC
+from diffews_tpu_torch import configs as TCF
+from diffews_tpu_torch import pipeline as TP
+from helpers.depth_check import depth_close
 from helpers.jax_checkpoint import tiny_params
 from helpers.torch_ranks import run_ranks
 from helpers.torch_threads import one_torch_thread  # noqa: F401  (autouse)
+from test_torch_depth import _jax_raw, _mask3
 
 RANKS = 4
 B, S, SR, H, D, N = 2, 16, 12, 3, 8, 8
@@ -207,6 +213,27 @@ def test_pipeline_matches_jax(case, mesh):
         got = res[f"episode_{mesh}"].numpy()
         assert got.shape == want.shape, (r, got.shape)
         _uint8_close(got, want, f"rank {r}")
+
+
+def test_depth_under_shot_mesh_matches_jax(case):
+    """The depth head's raw map with 8 shots over the ("shots",) mesh of 4
+    (rank 3 holds padded shots only): every rank's map within the depth
+    head's contract (`helpers/depth_check.py`) of JAX's unsharded depth
+    head on the same episode, and of the one-process port."""
+    e = case["eps"]["episode_shots"]
+    jax_raw = _jax_raw(case["jax_pipe"], e["q"], e["sup"], _mask3(e["msk"]), e["sm"], None)
+    ucfg, vcfg = TCF.UNetConfig.tiny(), TCF.VAEConfig.tiny()
+    bundle = TC.random_pipeline_bundle(ucfg, vcfg, None, TCF.SchedulerConfig.diffews())
+    bundle.unet.load_state_dict(TC.state_dict_from_jax(case["up"]))
+    bundle.vae.load_state_dict(TC.state_dict_from_jax(tiny_params()[1]))
+    one = TP.DiffewsPipeline(bundle, device="cpu").predict_depth_raw(
+        e["q"], e["sup"], e["msk"], shot_mask=e["sm"]).numpy()
+    for r, res in enumerate(case["ranks"]["shots"]):
+        got = res["depth_shots"]
+        assert got.shape == jax_raw.shape == one.shape == (1, 32, 32), r
+        for what, want in (("jax", jax_raw), ("one process", one)):
+            _, bad = depth_close(got, want, TP.depth_output(got), TP.depth_output(want))
+            assert not bad, (r, what, bad)
 
 
 def test_pipeline_rejects_indivisible_nshot(case):

@@ -5,9 +5,15 @@ port's CLIs only (`diffews_tpu_torch.cli.evaluate`,
 `diffews_tpu_torch.cli.train`) on one device:
 
   1. synthesise a learnable miniature COCO-20i
-     (`tests/helpers/synthetic_data.make_coco(correlated=True)`: the object
-     is brighter than the background, so held-out-fold episodes are
-     solvable by a model that learned "segment the bright object");
+     (`tests/helpers/synthetic_data.make_coco`): `--task visible`
+     (`correlated=True`: the object is brighter than the background, so
+     held-out-fold episodes are solvable from the query alone),
+     `incontext` (two coloured rectangles; which one is the object is
+     known only from the support, so a query-only model caps near 50
+     mIoU) or `incontext_nshot` (half the images are ambiguous supports,
+     so extra shots disambiguate: trained with random 1..`--nshot` shot
+     subsets, and the trained checkpoint evaluated at each shot count of
+     `--shot_curve`);
   2. pretrain the tiny VAE in plain torch to autoencode (the recipe of
      `train_capability.py:51-129`: Adam, reconstruction MSE of the mean
      latent's decode plus 0.05·mean(exp(logvar)), on dataset images and
@@ -16,8 +22,11 @@ port's CLIs only (`diffews_tpu_torch.cli.evaluate`,
   3. write a tiny checkpoint with the port's savers (seeded random UNet,
      the pretrained VAE, a tiny text tower, the DiffewS scheduler);
   4. evaluate the random-init UNet with the seeded eval protocol;
-  5. train it with the train CLI (f32, gas 1, validation at mid-run);
-  6. evaluate the trained checkpoint with the same protocol;
+  5. train it with the train CLI (f32, gas 1, validation at mid-run;
+     `--attn_mask_variant` trains and evaluates the attn-mask
+     conditioning);
+  6. evaluate the trained checkpoint with the same protocol (and at each
+     shot count of the curve);
   7. write the report as JSON and print it as one line.
 
 The pass rule (`--check`, as `tests/test_training.py::
@@ -27,6 +36,8 @@ falling, two mid-run validations.  Imports torch and the port only.
 
     python tools/torch_train_capability.py [--device cpu] [--steps 400]
         [--vae_steps 600] [--episodes 60] [--out report.json] [--check]
+        [--task visible|incontext|incontext_nshot] [--nshot 3]
+        [--shot_curve 1,2,3,5] [--curve_episodes 200] [--attn_mask_variant]
 """
 
 from __future__ import annotations
@@ -131,11 +142,12 @@ def build_checkpoint(ck_dir, vae, seed):
 
 
 def run_eval(ck_dir, data_dir, img_size, episodes, log_root, device, nshot,
-             unet_ckpt_path=None):
+             unet_ckpt_path=None, attn_mask_variant=False):
     """The seeded eval protocol through the port's eval CLI."""
     from diffews_tpu_torch.cli.evaluate import main as eval_main
 
-    argv = ["--checkpoint", ck_dir, "--datapath", data_dir, "--benchmark", "coco",
+    argv = (["--attn_mask_variant"] if attn_mask_variant else []) + [
+            "--checkpoint", ck_dir, "--datapath", data_dir, "--benchmark", "coco",
             "--fold", "0", "--nshot", str(nshot), "--img-size", str(img_size),
             "--denoise_steps", "1", "--ensemble_size", "1", "--threshold", "0",
             "--r_threshold", "0.25", "--max_episodes", str(episodes),
@@ -174,7 +186,18 @@ def main(argv=None) -> dict:
     p.add_argument("--lr", type=float, default=5e-4)
     p.add_argument("--vae_lr", type=float, default=2e-3)
     p.add_argument("--batch_size", type=int, default=4)
-    p.add_argument("--nshot", type=int, default=1)
+    p.add_argument("--nshot", type=int, default=1,
+                   help="max shots in training (random 1..n subsets a step); "
+                        "3 with --task incontext_nshot")
+    p.add_argument("--task", choices=["visible", "incontext", "incontext_nshot"],
+                   default="visible")
+    p.add_argument("--shot_curve", default="",
+                   help="comma list of shot counts to evaluate the trained "
+                        "checkpoint at (default 1,2,3,5 for incontext_nshot)")
+    p.add_argument("--curve_episodes", type=int, default=200,
+                   help="eval episodes per shot-curve point")
+    p.add_argument("--attn_mask_variant", action="store_true",
+                   help="train and evaluate with the attn-mask conditioning")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default=None,
                    help="torch device (default: the CUDA card, which must be present)")
@@ -197,8 +220,10 @@ def main(argv=None) -> dict:
     out_dir = os.path.join(workdir, "train")
     metrics_jsonl = os.path.join(workdir, "train_metrics.jsonl")
 
-    print("[1/6] synthesizing correlated COCO-20i", flush=True)
-    make_coco(data_dir, correlated=True, seed=args.seed)
+    print(f"[1/6] synthesizing correlated COCO-20i (task={args.task})", flush=True)
+    make_coco(data_dir,
+              correlated=args.task if args.task.startswith("incontext") else True,
+              imgs_per_class=6 if args.task == "incontext_nshot" else 3, seed=args.seed)
     print("[2/6] pretraining the tiny VAE", flush=True)
     t1 = time.time()
     vae, recon, ceiling = pretrain_vae(VAEConfig.tiny(), data_dir, args.img_size,
@@ -212,7 +237,7 @@ def main(argv=None) -> dict:
     t1 = time.time()
     miou_random, fb_random = run_eval(ck_dir, data_dir, args.img_size, args.episodes,
                                       os.path.join(workdir, "eval_random"), str(device),
-                                      args.nshot)
+                                      args.nshot, attn_mask_variant=args.attn_mask_variant)
     eval_s = time.time() - t1
     print(f"[5/6] training {args.steps} steps through the train CLI", flush=True)
     t1 = time.time()
@@ -228,22 +253,36 @@ def main(argv=None) -> dict:
         "--validation_steps", str(max(args.steps // 2, 1)),
         "--validation_episodes", str(args.validation_episodes),
         "--validation_image_grids", "2", "--dataloader_num_workers", "0",
-        "--device", str(device)])
+        "--device", str(device)] + (["--attn_mask_variant"] if args.attn_mask_variant else []))
     train_s = time.time() - t1
     trained_unet = os.path.join(out_dir, f"checkpoint-{args.steps}", "unet")
     print("[6/6] eval of the trained UNet", flush=True)
     miou_trained, fb_trained = run_eval(ck_dir, data_dir, args.img_size, args.episodes,
                                         os.path.join(workdir, "eval_trained"), str(device),
-                                        args.nshot, unet_ckpt_path=trained_unet)
+                                        args.nshot, unet_ckpt_path=trained_unet,
+                                        attn_mask_variant=args.attn_mask_variant)
+    curve_spec = args.shot_curve or ("1,2,3,5" if args.task == "incontext_nshot" else "")
+    shot_curve = {}
+    for k in [int(c) for c in curve_spec.split(",") if c.strip()]:
+        mi_k, fb_k = run_eval(ck_dir, data_dir, args.img_size, args.curve_episodes,
+                              os.path.join(workdir, f"eval_shots{k}"), str(device), k,
+                              unet_ckpt_path=trained_unet,
+                              attn_mask_variant=args.attn_mask_variant)
+        shot_curve[str(k)] = {"miou": mi_k, "fb_iou": fb_k}
+        print(f"[curve] {k}-shot mIoU {mi_k:.2f} FB-IoU {fb_k:.2f} "
+              f"({args.curve_episodes} episodes)", flush=True)
     with open(os.path.join(out_dir, "eval_results.txt")) as fh:
         val_lines = [ln.strip() for ln in fh if ln.strip()]
     losses = [r["loss"] for r in train["log"]]
     report = {
-        "task": f"visible synthetic COCO-20i fold0, held-out classes, {args.img_size}px, "
+        "task": f"{args.task} synthetic COCO-20i fold0, held-out classes, {args.img_size}px, "
                 f"{args.nshot}-shot, seeded protocol",
         "device": str(device),
         "card": torch.cuda.get_device_name(0) if device.type == "cuda" else None,
         "steps": args.steps, "lr": args.lr, "batch_size": args.batch_size,
+        "nshot_train": args.nshot, "attn_mask_variant": args.attn_mask_variant,
+        "shot_curve": shot_curve or None,
+        "curve_episodes": args.curve_episodes if shot_curve else None,
         "vae_pretrain": {"steps": args.vae_steps, "recon_mse": recon,
                          "mask_roundtrip_iou": ceiling, "seconds": vae_s},
         "episodes": args.episodes,
