@@ -195,7 +195,22 @@ Phases, each of which fails the run (non-zero exit) on any error:
      CLI run plainly, then with `--num_data_shards 1`, then plainly again
      (equal metrics, warm walls); then the train CLI with
      `--num_data_shards 1 --fsdp` (launches, step walls beside the plain
-     CLI's).
+     CLI's); (d) tensor parallelism on 2 ranks over gloo (a ("data",
+     "model") mesh of 1 x 2): two tiny f32 (TF32 off) steps on a state born
+     tensor-parallel against the same steps in one process (phase
+     tiny_train's rules), and the full-width bf16 train CLI with
+     `--num_model_shards 2`, 1-shot b1, 2 steps: per rank the single CLI's
+     launches a micro-step (65 / 32 / 32 / 109 + 109, the flash kernels at
+     3 + 2, 5 + 5 and 10 + 10 heads) and 162 all_reduces (asserted), their
+     bytes, step walls, peak memory beside the DP run's; (e) the sharded
+     daemon at full width, bf16, 2 ranks over gloo: `--num_data_shards 2`
+     at bsz 4 (one-off, supports.add, cached) and `--num_shot_shards 2` at
+     nshot 2 (one-off; `/v1/supports` 400): each answer equal to the bare
+     pipeline call on the same mesh bit for bit, rank 0's launches a
+     request the single daemon's, each follower's over the session equal
+     to rank 0's, healthz's mesh JAX's, q/s.  (b)'s CLI, (d)'s CLI and (e)
+     run in one torchrun, in turn.  Phases eval and serve run at 8 batches
+     and 2 / 4 requests a client to make room for (d) and (e).
 
 Every line before the last is plain text or JSON; the last line is
 `{"ok": true, "device": {...}}`.  Detailed results also go to
@@ -2473,8 +2488,9 @@ def _serve_load(pipe, sup1, m1, frames, card):
                                  batch_buckets="1,2,4", model_desc="random-init sd21")
 
     runs = {}
-    # window 0 serves one query a call (≈ 3.5–4 q/s): 3 requests a client
-    # there keep the phase's time, 6 elsewhere
+    # window 0 serves one query a call (≈ 3.5–4 q/s): 2 requests a client
+    # there keep the phase's time, 4 elsewhere (3 / 6 before phase multi
+    # took (d) and (e))
     for name, window, depth, mode, oneoff, clients in (
             ("cached_w0_png", 0, 2, "png", False, 16), ("cached_w30_png", 30, 2, "png", False, 16),
             ("cached_w0_raw", 0, 2, "raw", False, 16), ("cached_w30_raw", 30, 2, "raw", False, 16),
@@ -2494,12 +2510,12 @@ def _serve_load(pipe, sup1, m1, frames, card):
             if mode == "raw":
                 bodies = [{**b, "encoding": "raw"} for b in bodies]
             SB.post(base, "/v1/segment", bodies[0])
-            reqs = 3 if window == 0 and not oneoff else 6
+            reqs = 2 if window == 0 and not oneoff else 4
             run = SB.http_run(base, bodies, clients=clients, reqs=reqs)
             if name == "cached_w30_raw":
                 run["profile"] = profile_episode(
                     lambda: SB.http_run(base, bodies, clients=clients, reqs=2))
-                run["replay"] = SB.replay(ms, cid, frames, clients=clients, reqs=6)
+                run["replay"] = SB.replay(ms, cid, frames, clients=clients, reqs=4)
                 run["bare_predict_cached"] = {
                     f"b{b}": SB.bare_rate(pipe, ms._caches[cid], b, SERVE_PX) for b in (4, 1)}
                 run["dispatch_probe"] = SB.dispatch_probe(pipe, ms._caches[cid], SERVE_PX)
@@ -2743,7 +2759,7 @@ def phase_serve(card):
     return paths
 
 
-EVAL_BATCHES = 16  # batches of each full-width harness run
+EVAL_BATCHES = 8  # batches of each full-width harness run (16 before phase multi took (d), (e))
 
 
 def _eval_argv(data, logs, *extra):
@@ -3249,8 +3265,9 @@ def _jsonl(path):
 
 class _CountedSteps:
     """The CLI's step function with every call's kernel launches recorded
-    (counts read just before and just after the call) and its synced wall
-    (the device drained before it, the loss read after it)."""
+    (counts read just before and just after the call), its synced wall (the
+    device drained before it, the loss read after it), and the
+    `torch.distributed.all_reduce` calls it made and their bytes."""
 
     def __init__(self, make):
         self.make, self.calls = make, []
@@ -3268,12 +3285,25 @@ class _CountedSteps:
             return c
 
         def run(*args):
+            import torch.distributed as dist
+
+            real, sizes = dist.all_reduce, []
+
+            def counted_all_reduce(t, *a, **kw):
+                sizes.append(t.numel() * t.element_size())
+                return real(t, *a, **kw)
+
             torch.cuda.synchronize()
             before, t0 = counts(), time.perf_counter()
-            state, m = step(*args)
-            float(m["loss"])
+            dist.all_reduce = counted_all_reduce
+            try:
+                state, m = step(*args)
+                float(m["loss"])
+            finally:
+                dist.all_reduce = real
             self.calls.append({"launches": {k: v - before[k] for k, v in counts().items()},
-                               "synced_s": time.perf_counter() - t0})
+                               "synced_s": time.perf_counter() - t0, "loss": float(m["loss"]),
+                               "all_reduces": len(sizes), "all_reduce_bytes": sum(sizes)})
             return state, m
 
         return run
@@ -3841,6 +3871,82 @@ def _rank_dp_tiny(rank):
     return res
 
 
+def _rank_tp_tiny(rank):
+    """(d), on each rank of a gloo ("data", "model") mesh of 1 x 2 on the one
+    card: two tiny f32 steps at gas 2 (one padded shot a row) on a state
+    born tensor-parallel (whole heads and GEGLU blocks a rank, remat on);
+    rank 0 then runs the same steps unsharded and holds the two under
+    phase tiny_train's rules.  Under cuDNN's deterministic algorithms (as
+    the train CLI runs on the card): the ranks compute their replicated
+    leaves alike, so their losses are equal bit for bit (cuDNN's default
+    f32 convolution gradients sum with atomics at these shapes, and the
+    replicas would drift apart by float noise)."""
+    import torch
+    import torch.distributed as dist
+    from diffews_tpu_torch.configs import UNetConfig, VAEConfig
+    from diffews_tpu_torch.models.unet import UNet2DConditionModel
+    from diffews_tpu_torch.models.vae import AutoencoderKL
+    from diffews_tpu_torch.parallel import mesh as M
+    from diffews_tpu_torch.training import checkpoints as tck
+    from diffews_tpu_torch.training.state import TrainerConfig, init_state, make_train_step
+    from diffews_tpu_torch.utils.init import build_module
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    mesh = M.make_mesh("cpu", 1, MULTI_RANKS)
+    gas, b, n, px, lr = 2, 2, 2, 32, 1e-3
+    cfg = TrainerConfig(compute_dtype=torch.float32, adam_mu_dtype=torch.float32,
+                        learning_rate=lr, max_train_steps=10)
+    text = torch.tensor(np.random.default_rng(5).normal(
+        0, 0.5, (1, 77, UNetConfig.tiny().cross_attention_dim)), dtype=torch.float32,
+        device="cuda")
+    noise = np.random.default_rng(6).normal(
+        size=(2, gas, _n_images(b, n, False), px // 2, px // 2, 4)).astype(np.float32)
+
+    def run(tp_mesh):
+        unet = build_module(UNet2DConditionModel, UNetConfig.tiny(), seed=0)
+        vae = build_module(AutoencoderKL, VAEConfig.tiny(), seed=1).to(
+            "cuda", memory_format=torch.channels_last).requires_grad_(False)
+        if tp_mesh is None:
+            layout = None
+            unet = unet.to("cuda", memory_format=torch.channels_last)
+            state = init_state(cfg, dict(unet.named_parameters()), device="cuda")
+        else:
+            state, layout = M.init_state_sharded(cfg, dict(unet.named_parameters()), tp_mesh,
+                                                 tensor_parallel=True,
+                                                 fsdp=False, units=M.tp_units(unet),
+                                                 device="cuda")
+        step = make_train_step(cfg, unet, layout=layout)
+        metrics, mu_hist = [], []
+        for i in range(2):
+            batch = _train_batch(gas, b, n, px, seed=30 + i, padded=1, device="cuda")
+            state, mt = step(state, batch, torch.from_numpy(noise[i]).to("cuda"), vae, text)
+            metrics.append({k: float(v) for k, v in mt.items()})
+            mu_hist.append(tck.host_fetch(state.opt_state.mu, layout))
+        return metrics, tck.host_fetch(state.params, layout), mu_hist, layout
+
+    tp_run, tp_params, _, layout = run(mesh)
+    level0 = "down_blocks.0.attentions.0.transformer_blocks.0.attn1.to_q.weight"
+    res = {"loss": [x["loss"] for x in tp_run], "grad_norm": [x["grad_norm"] for x in tp_run],
+           "model_ranges_level0_to_q": layout.model_ranges(level0)}
+    dist.barrier()
+    if rank == 0:
+        one, one_params, mu_hist, _ = run(None)
+        what = "multi (d) tiny TP vs single-process"
+        for i, (a, c) in enumerate(zip(tp_run, one)):
+            check(abs(a["loss"] - c["loss"]) <= 1e-5 * abs(c["loss"]),
+                  f"{what}: step {i} loss {a['loss']} vs {c['loss']}")
+            check(abs(a["grad_norm"] - c["grad_norm"]) <= 1e-4 * abs(c["grad_norm"]),
+                  f"{what}: step {i} grad norm {a['grad_norm']} vs {c['grad_norm']}")
+        res.update(_params_close(tp_params, one_params, mu_hist, lr, 2, what),
+                   loss_single=[x["loss"] for x in one])
+    dist.barrier()
+    torch.backends.cudnn.deterministic = deterministic
+    return res
+
+
 def _rank_serve_train(out_dir):
     import torch.distributed as dist
     from diffews_tpu_torch.parallel import mesh as M
@@ -3852,9 +3958,114 @@ def _rank_serve_train(out_dir):
     res = {"rank": rank, "backend": dist.get_backend()}
     res["serve"] = _rank_shot_serving(rank, out_dir)
     res["train"] = _rank_dp_tiny(rank)
+    res["tp"] = _rank_tp_tiny(rank)
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
     dist.destroy_process_group()
+
+
+SHARDED_SERVE_TIMED = 4  # timed requests of each kind on a sharded daemon
+
+
+def _serve_sharded(ckpt, label, flags) -> dict:
+    """(e), on each of the ranks of a gloo mesh on the one card: the
+    full-width bf16 daemon of `cli.serve` with `flags` (`--num_data_shards 2
+    --bsz 4` or `--num_shot_shards 2 --nshot 2 --bsz 1`), its mesh built on
+    gloo.  First every rank makes the bare pipeline calls (the warm-up, a
+    one-off episode, under the data mesh a batch-1 cache and a cached call);
+    then rank 0 serves HTTP in a thread of its own and its main thread asks:
+    the one-off request (and supports.add and a cached request), each
+    counted and equal to its bare call bit for bit, then timed requests;
+    the followers follow.  Every rank counts its launches over the
+    session."""
+    import torch
+    from diffews_tpu_torch.cli import serve
+    from diffews_tpu_torch.parallel import mesh as M
+
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import cuda_serve_bench as SB
+
+    setup = serve._setup_meshes
+    serve._setup_meshes = lambda args, device_type: setup(args, "cpu")
+    try:
+        ms = serve.make_server(serve.build_parser().parse_args(
+            ["--checkpoint", ckpt, "--half_precision", "--device", "cuda",
+             "--img-size", str(SERVE_PX), *flags]))
+    finally:
+        serve._setup_meshes = setup
+    pipe, b, n, data = ms.pipe, ms.bsz, ms.nshot, "--num_data_shards" in flags
+    q, sup, m = _episode(b, n, SERVE_PX, seed=40)
+    sup_n, m_n = sup[0], m[0].astype(np.float32)  # the request's shots
+    supb = np.broadcast_to(sup_n[None], (b,) + sup_n.shape)
+    mb = np.broadcast_to(m_n[None], (b,) + m_n.shape)
+    pipe.predict(q, supb, mb, r_threshold=0.25)  # warm: builds the kernels
+    bare = {"oneoff": pipe.predict(q, supb, mb, r_threshold=0.25)}
+    if data:
+        c1 = pipe.precompute_supports(sup_n[None], m_n[None])
+        bare["cached"] = pipe.predict_cached(q, c1, r_threshold=0.25)
+        del c1
+    torch.cuda.synchronize()
+    res = {"label": label, "mesh": serve.mesh_desc(pipe), "rank": M.rank()}
+    _zero_counts()
+    if ms.follower:
+        ms.follow()
+        torch.cuda.synchronize()
+        res["session_launches"] = _launch_counts()
+        return res
+
+    httpd, base = SB.start_daemon(ms)
+    try:
+        def counted(path, body):
+            before = _launch_counts()
+            out = SB.post(base, path, body)
+            torch.cuda.synchronize()
+            return out, {k: v - before[k] for k, v in _launch_counts().items()}
+
+        raw_q = [SB.raw(x) for x in q]
+        oneoff_body = {"query": raw_q, "supports": [SB.raw(x) for x in sup_n],
+                       "masks": [SB.raw(x) for x in m[0]], "return_seg": True,
+                       "encoding": "raw"}
+        got, launches = counted("/v1/segment", oneoff_body)
+        res["launches"] = {"oneoff": launches}
+        want = bare["oneoff"]
+        check(all(np.array_equal(_unraw(sg), want.seg_colored[i])
+                  and np.array_equal(_unraw(k) > 0, want.mask[i])
+                  for i, (sg, k) in enumerate(zip(got["seg"], got["masks"]))),
+              f"multi (e) {label}: the one-off answer differs from the bare call")
+        bodies = {"oneoff": oneoff_body}
+        if data:
+            added, res["launches"]["supports_add"] = counted(
+                "/v1/supports", {"images": [SB.raw(sup_n[0])], "masks": [SB.raw(m[0][0])]})
+            bodies["cached"] = {"query": raw_q, "cache_id": added["cache_id"],
+                                "return_seg": True, "encoding": "raw"}
+            got, res["launches"]["cached"] = counted("/v1/segment", bodies["cached"])
+            check(all(np.array_equal(_unraw(sg), bare["cached"].seg_colored[i])
+                      for i, sg in enumerate(got["seg"])),
+                  f"multi (e) {label}: the cached answer differs from the bare call")
+        else:
+            st = None
+            try:
+                SB.post(base, "/v1/supports", {"images": [SB.raw(sup_n[0])],
+                                               "masks": [SB.raw(m[0][0])]})
+            except Exception as e:  # urllib's HTTPError carries the status
+                st = getattr(e, "code", None)
+            check(st == 400, f"multi (e) {label}: /v1/supports answered {st}, not 400")
+        res["health_mesh"] = SB.get(base, "/healthz")["mesh"]
+        for kind, body in bodies.items():
+            t0 = time.time()
+            for _ in range(SHARDED_SERVE_TIMED):
+                SB.post(base, "/v1/segment", body)
+            wall = time.time() - t0
+            res[f"{kind}_qps"] = SHARDED_SERVE_TIMED * b / wall
+            res[f"{kind}_request_s"] = wall / SHARDED_SERVE_TIMED
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        ms.close()
+    torch.cuda.synchronize()
+    res["session_launches"] = _launch_counts()
+    res["stats"] = ms.stats_snapshot()
+    return res
 
 
 _TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE", "GROUP_RANK",
@@ -3864,19 +4075,29 @@ _TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE", "GROUP_
 
 def _run_cli(kind, argv) -> dict:
     """`main(argv)` of the train CLI (its steps counted by `_CountedSteps`;
-    "train_gloo": its data mesh built on gloo, which lets two ranks share
-    the one card where NCCL refuses them) or the eval CLI ("eval";
+    "train_gloo": its mesh built on gloo, which lets two ranks share the
+    one card where NCCL refuses them) or the eval CLI ("eval";
     "eval_plain": with torchrun's environment hidden, so that it runs as
-    one plain process), its wall and the peak memory."""
+    one plain process), or the sharded daemon ("serve_sharded",
+    `_serve_sharded`), its wall and the peak memory."""
     import torch
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     hidden = {k: os.environ.pop(k) for k in _TORCHRUN_ENV
               if kind == "eval_plain" and k in os.environ}
+    if kind in ("train_gloo", "serve_sharded"):
+        # one gloo process group for all the rank's runs: a process group
+        # destroyed and made again in one process next to groups of its own
+        # (the daemon's) can hang or abort at exit
+        from diffews_tpu_torch.parallel import mesh as M
+
+        M.maybe_initialize_distributed(device_type="cpu")
     t0 = time.time()
     try:
-        if kind.startswith("train"):
+        if kind == "serve_sharded":
+            res = _serve_sharded(argv[0], argv[1], argv[2:])
+        elif kind.startswith("train"):
             from diffews_tpu_torch.cli import train as TT
 
             counted, setup = _CountedSteps(TT.make_train_step), TT._setup_mesh
@@ -3904,7 +4125,7 @@ def rank_main(argv):
     `chip_smoke.py --rank-task serve_train <out_dir>`, or
     `chip_smoke.py --rank-task cli <out_dir> -- <kind> <argv> [-- <kind> <argv> ...]`
     (CLI runs in turn in this process, kind train / train_gloo / eval /
-    eval_plain)."""
+    eval_plain / serve_sharded)."""
     task, out_dir = argv[0], argv[1]
     sys.path.insert(0, ROOT)
     if task == "serve_train":
@@ -3922,10 +4143,15 @@ def rank_main(argv):
     res = [dict(_run_cli(kind, cli_argv), kind=kind, rank=rank) for kind, cli_argv in runs]
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def _multi_serve_train(tmp):
-    """(a) shot-parallel serving and (b)'s tiny DP steps: 2 ranks, gloo."""
+    """(a) shot-parallel serving, (b)'s tiny DP steps and (d)'s tiny TP
+    steps: 2 ranks, gloo."""
     out = os.path.join(tmp, "serve_train")
     os.makedirs(out)
     wall = _torchrun(MULTI_RANKS, [os.path.join(ROOT, "chip_smoke.py"), "--rank-task",
@@ -3946,8 +4172,11 @@ def _multi_serve_train(tmp):
               f"{want}")
         check(r["train"]["loss"] == ranks[0]["train"]["loss"],
               "multi (b): the ranks' DP losses differ")
+    check(all(r["tp"]["loss"] == ranks[0]["tp"]["loss"] for r in ranks),
+          f"multi (d): the ranks' tiny TP losses differ: {[r['tp']['loss'] for r in ranks]}")
     return {"wall_s": wall, "backend": ranks[0]["backend"],
-            "serve": [r["serve"] for r in ranks], "train_tiny": [r["train"] for r in ranks]}
+            "serve": [r["serve"] for r in ranks], "train_tiny": [r["train"] for r in ranks],
+            "tp_tiny": [r["tp"] for r in ranks]}
 
 
 def _multi_cli(tmp, name, nproc, runs, timeout):
@@ -3962,10 +4191,50 @@ def _multi_cli(tmp, name, nproc, runs, timeout):
     return wall, _rank_results(out, nproc)
 
 
+# all_reduces per tensor-parallel CLI micro-step (gas 1, remat) of a rank,
+# over "model" (the data axis has one rank, whose collectives are skipped):
+# per transformer block 3 row-parallel sums in the forward, 3 again in the
+# recomputation, 3 input-gradient sums (attn1, attn2's query, the FFN) and
+# the GEGLU bias's gradient gather: 10; 16 blocks; then the optimizer's
+# non-finite vote and global norm
+TP_CLI_ALL_REDUCES = 16 * 10 + 2
+
+
+def _sharded_serve_summary(ranks, card) -> dict:
+    """(e)'s checks over the ranks' results ([data, shots] per rank): rank
+    0's requests launched what the single-device daemon's do, each
+    follower launched what rank 0 did over the session, healthz names JAX's
+    mesh; the q/s."""
+    out = {}
+    for i, (label, mesh) in enumerate((("data", "data=2xmodel=1"), ("shots", "shots=2"))):
+        r0, followers = ranks[0][i], [r[i] for r in ranks[1:]]
+        expect = {"oneoff": EPISODE_LAUNCHES["xla"],
+                  "supports_add": CACHED_LAUNCHES["xla", "capture"],
+                  "cached": CACHED_LAUNCHES["xla", "predict"]}
+        for kind, counts in r0["launches"].items():
+            check(counts == expect[kind], f"multi (e) {label} {kind} launched {counts}, "
+                  f"expected {expect[kind]}")
+        for f in followers:
+            check(f["session_launches"] == r0["session_launches"],
+                  f"multi (e) {label}: rank {f['rank']} launched {f['session_launches']}, "
+                  f"rank 0 {r0['session_launches']}")
+        check(r0["mesh"] == r0["health_mesh"] == mesh,
+              f"multi (e) {label}: healthz mesh {r0['health_mesh']!r}, expected {mesh!r}")
+        out[label] = {k: v for k, v in r0.items() if k not in ("rank", "label")}
+        out[label].update(peak_mem_gb=[r[i]["peak_mem_gb"] for r in ranks],
+                          main_wall_s=[r[i]["wall_s"] for r in ranks], card=card,
+                          ranks=len(ranks), backend="gloo", answers_equal_bare_calls=True)
+        emit({"phase": f"multi_sharded_daemon_{label}_512px_bf16",
+              **{k: v for k, v in out[label].items() if k != "stats"}})
+    return out
+
+
 def phase_multi(card, work):
     """Multi-device serving and training on the one card: (a) shot-parallel
     serving and (b) data-parallel training on 2 ranks over gloo, (c) the
-    train CLI (FSDP) and the eval CLI at world size 1 over NCCL."""
+    train CLI (FSDP) and the eval CLI at world size 1 over NCCL, (d)
+    tensor-parallel training and (e) the sharded daemon on 2 ranks over
+    gloo."""
     import shutil
 
     t0 = time.time()
@@ -3978,6 +4247,9 @@ def phase_multi(card, work):
           **{k: v for k, v in res["serve"][0].items()},
           "rank1": {k: res["serve"][1][k] for k in ("launches_per_episode", "sharded_wall_s")}})
     emit({"phase": "multi_dp_tiny_f32", "ranks": MULTI_RANKS, **res["train_tiny"][0]})
+    emit({"phase": "multi_tp_tiny_f32", "ranks": MULTI_RANKS, "mesh": "data=1xmodel=2",
+          **res["tp_tiny"][0],
+          "rank1_model_ranges_level0_to_q": res["tp_tiny"][1]["model_ranges_level0_to_q"]})
 
     def train_argv(out, *extra):
         return ["--pretrained_model_name_or_path", ckpt, "--datapath", data,
@@ -4002,14 +4274,42 @@ def phase_multi(card, work):
                 "launches_per_micro_step": r0["steps"][0]["launches"],
                 "main_wall_s": [r["wall_s"] for r in runs], "load_s": r0["load_s"]}
 
-    # (b) the full-width bf16 CLI, data-parallel over 2 ranks (gloo), b1 a rank
-    out = os.path.join(tmp, "dp_full")
-    wall, ranks = _multi_cli(tmp, "dp_cli", MULTI_RANKS, [("train_gloo", train_argv(
-        out, "--train_batch_size", "2", "--num_data_shards", "2"))], timeout=400)
-    res["dp_full"] = dict(steps_summary([r[0] for r in ranks]), torchrun_wall_s=wall,
-                          card=card, ranks=MULTI_RANKS, backend="gloo")
-    shutil.rmtree(out)
+    # in one torchrun of 2 ranks over gloo, one run after another: (b) the
+    # full-width bf16 CLI data-parallel, b1 a rank; (d) the same CLI tensor
+    # parallel over 2 ranks (the b1 batch whole on each); (e) the daemon on
+    # a data mesh (bsz 4) and on a shot mesh (2 shots, bsz 1)
+    dp_out, tp_out = os.path.join(tmp, "dp_full"), os.path.join(tmp, "tp_full")
+    wall, ranks = _multi_cli(tmp, "gloo_cli", MULTI_RANKS, [
+        ("train_gloo", train_argv(dp_out, "--train_batch_size", "2", "--num_data_shards", "2")),
+        ("train_gloo", train_argv(tp_out, "--train_batch_size", "1", "--num_data_shards", "1",
+                                  "--num_model_shards", str(MULTI_RANKS))),
+        ("serve_sharded", [ckpt, "data", "--num_data_shards", "2", "--bsz", "4",
+                           "--nshot", "1"]),
+        ("serve_sharded", [ckpt, "shots", "--num_shot_shards", "2", "--bsz", "1",
+                           "--nshot", "2"])], timeout=900)
+    res["gloo_torchrun_wall_s"] = wall
+    res["dp_full"] = dict(steps_summary([r[0] for r in ranks]), card=card, ranks=MULTI_RANKS,
+                          backend="gloo")
     emit({"phase": "multi_dp_cli_full_1shot_b1_per_rank_512px_bf16", **res["dp_full"]})
+    tp = [r[1] for r in ranks]
+    res["tp_full"] = dict(steps_summary(tp), card=card, ranks=MULTI_RANKS, backend="gloo",
+                          dp_peak_mem_gb=res["dp_full"]["peak_mem_gb"],
+                          all_reduces_per_micro_step=[[st["all_reduces"] for st in r["steps"]]
+                                                      for r in tp],
+                          all_reduce_bytes_per_micro_step=[
+                              [st["all_reduce_bytes"] for st in r["steps"]] for r in tp])
+    check(all(n == TP_CLI_ALL_REDUCES for r in res["tp_full"]["all_reduces_per_micro_step"]
+              for n in r), f"multi (d): all_reduces per step "
+          f"{res['tp_full']['all_reduces_per_micro_step']}, expected {TP_CLI_ALL_REDUCES}")
+    # the CLI runs cuDNN's deterministic algorithms on the card: every rank
+    # computes the replicated leaves alike, so the ranks' losses are equal
+    tp_losses = [[st["loss"] for st in r["steps"]] for r in tp]
+    check(all(x == tp_losses[0] for x in tp_losses),
+          f"multi (d): the TP CLI ranks' losses differ: {tp_losses}")
+    for out in (dp_out, tp_out):
+        shutil.rmtree(out)
+    emit({"phase": "multi_tp_cli_full_1shot_b1_model2_512px_bf16", **res["tp_full"]})
+    res["serve_sharded"] = _sharded_serve_summary([r[2:] for r in ranks], card)
 
     # (c) world size 1 over NCCL, in one fresh process: the eval CLI
     # plainly (torchrun's environment hidden) first, so that nothing run
@@ -4054,10 +4354,16 @@ def phase_multi(card, work):
     emit({"phase": "multi", "seconds": res["seconds"]})
     RESULTS["multi"] = res
     s = res["serve"][0]
+    sd = res["serve_sharded"]
     return {"shot_parallel_episode_2shot_b1_per_rank": s["launches_per_episode"],
             "dp_cli_micro_step_1shot_b1_per_rank": res["dp_full"]["launches_per_micro_step"],
             "fsdp_cli_world1_micro_step_1shot_b1":
-                res["fsdp_full_world1"]["launches_per_micro_step"]}
+                res["fsdp_full_world1"]["launches_per_micro_step"],
+            "tp_cli_micro_step_1shot_b1_model2_per_rank":
+                res["tp_full"]["launches_per_micro_step"],
+            "sharded_daemon_data2_oneoff_b4_per_rank": sd["data"]["launches"]["oneoff"],
+            "sharded_daemon_data2_cached_b4_per_rank": sd["data"]["launches"]["cached"],
+            "sharded_daemon_shots2_oneoff_2shot_b1_per_rank": sd["shots"]["launches"]["oneoff"]}
 
 
 def kernel_record(rows, bwd_rows, norm_rows, fused_rows, down_rows, episode_launches,

@@ -54,24 +54,43 @@ AOT-exported `torch.export` program instead of model code: only one-off
 episodes at the artifact's frozen (bsz, nshot) — no cache endpoints.
 
 Runs on the CUDA card unless `--device cpu` is given (the kernels' plain
-versions); on a host without a card it raises.  `--num_data_shards` /
-`--num_shot_shards` above 1 raise: a daemon of one process per device needs
-rank 0 to hand every request to the other ranks, which is not ported
-(ROADMAP A11b; the pipeline's `mesh` / `shot_mesh` are).  `--vae_impl
-int8` and `--unet_int8` (W8A8) calibrate their static scales when the
-daemon loads; the cached endpoints run the int8 UNet too.
+versions); on a host without a card it raises.  `--vae_impl int8` and
+`--unet_int8` (W8A8) calibrate their static scales when the daemon loads;
+the cached endpoints run the int8 UNet too.
+
+Multi-device serving (JAX `serve.py:852-890`), one process per device:
+
+    torchrun --nproc_per_node 2 -m diffews_tpu_torch.cli.serve \
+        --checkpoint <dir> --num_data_shards 2 --bsz 4     # or --num_shot_shards 2
+
+`--num_data_shards` splits the server batch over a ("data",) mesh,
+`--num_shot_shards` a one-off episode's shots over a ("shots",) mesh
+(("data", "shots") with both), with JAX's divisibility checks; the shot
+mesh refuses `/v1/supports` as JAX's does.  Rank 0 runs the HTTP server;
+the other ranks follow it (`_Peers`): every device call goes through
+the dispatch lock, and under it rank 0 broadcasts the call's name, options
+and arrays to the followers before making it, so every rank runs the same
+pipeline calls in the same order.  A follower keeps its own support caches
+under rank 0's ids (inserted and FIFO-evicted in the same order) and
+waits for each result before the next call, so its device memory cannot
+grow.  SIGTERM drains rank 0 and then broadcasts a stop: every rank exits
+0 (the followers ignore the signal that `torchrun` forwards them).  A
+follower that dies fails rank 0's next broadcast (its connection is
+closed): the request answers 503 and the daemon stops with exit code 1.
 """
 
 from __future__ import annotations
 
 import argparse
 import base64
+import datetime
 import io
 import json
 import math
 import signal
 import threading
 import time
+import traceback
 import uuid
 from collections import OrderedDict, deque
 from contextlib import contextmanager
@@ -80,10 +99,12 @@ from typing import List, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from PIL import Image
 
 from diffews_tpu_torch.data.transforms import ImageTransform, nearest_resize_mask
 from diffews_tpu_torch.ops.resize import _nearest_indices
+from diffews_tpu_torch.parallel import mesh as mesh_lib
 from diffews_tpu_torch.pipeline import (ATTN_IMPLS, DiffewsPipeline, PendingSeg, SegOutput,
                                         device_mask_from_seg, resolve_device)
 
@@ -192,6 +213,41 @@ def _as_list(x) -> List:
     return x if isinstance(x, list) else [x]
 
 
+class _Peers:
+    """The daemon's ranks under a mesh: rank 0 broadcasts each device call
+    (`send`), the followers receive them in order (`recv`).  The calls ride
+    a gloo group of their own (CPU tensors, whatever the mesh's backend)
+    whose timeout is long: an idle follower waits for the next request
+    without timing out.  A dead follower's closed connection fails rank
+    0's next `send` at once."""
+
+    IDLE_TIMEOUT = datetime.timedelta(days=365)
+
+    def __init__(self):
+        self.group = dist.new_group(backend="gloo", timeout=self.IDLE_TIMEOUT)
+        self.rank = dist.get_rank()
+
+    def send(self, op: str, **payload) -> None:
+        dist.broadcast_object_list([(op, payload)], src=0, group=self.group)
+
+    def recv(self) -> Tuple[str, dict]:
+        box = [None]
+        dist.broadcast_object_list(box, src=0, group=self.group)
+        return box[0]
+
+
+def mesh_desc(pipe) -> str:
+    """The serving mesh as JAX's healthz names it ("data=2xmodel=1",
+    "shots=2", "data=2xshots=2"; JAX's data mesh has both of
+    `make_mesh`'s axes), "" for one device."""
+    for m in (pipe.mesh, pipe.shot_mesh):
+        if m is not None:
+            names = tuple(m.mesh_dim_names)
+            desc = "x".join(f"{ax}={m.size(i)}" for i, ax in enumerate(names))
+            return desc + "xmodel=1" if names == ("data",) else desc
+    return ""
+
+
 class ModelServer:
     """Request decoding + shape padding + device dispatch (lock-serialized).
 
@@ -203,8 +259,12 @@ class ModelServer:
                  img_size: int, r_threshold: float, max_caches: int = 8,
                  batch_window_ms: float = 0.0, dispatch_depth: int = 2,
                  max_body_mb: float = 64.0, model_desc: str = "",
-                 batch_buckets: str = ""):
+                 batch_buckets: str = "", peers: "_Peers" = None):
         assert (pipe is None) != (artifact is None)
+        # multi-device: the ranks' device calls (None for one process)
+        self._peers = peers
+        self.peer_error = None  # the follower failure that stops rank 0
+        self.on_peer_failure = lambda: None  # set by main: stop serving
         self.max_body_bytes = int(max_body_mb * 1024 * 1024)
         self.pipe = pipe
         self.artifact = artifact
@@ -259,6 +319,70 @@ class ModelServer:
             # after the lock releases (stats has its own lock); also on the
             # error path — a failing device call still held the lock
             self.stats.add_device(dt)
+
+    @property
+    def follower(self) -> bool:
+        """A rank other than 0 of a multi-device daemon (it serves no HTTP)."""
+        return self._peers is not None and self._peers.rank != 0
+
+    def _send(self, op: str, **payload) -> None:
+        """Hand a device call to the followers; called under the dispatch
+        lock, right before rank 0 makes the same call.  A follower that
+        cannot take it stops the daemon."""
+        if self._peers is None:
+            return
+        if self.peer_error is not None:
+            raise ServeError(503, f"a follower rank failed: {self.peer_error}")
+        try:
+            self._peers.send(op, **payload)
+        except RuntimeError as e:
+            self.peer_error = e
+            self.on_peer_failure()
+            raise ServeError(503, f"a follower rank failed: {e}")
+
+    def close(self) -> None:
+        """Stop the followers (rank 0, after the HTTP server drained)."""
+        if self._peers is None or self.follower or self.peer_error is not None:
+            return
+        with self._lock:
+            try:
+                self._peers.send("stop")
+            except RuntimeError as e:
+                self.peer_error = e
+
+    def follow(self) -> None:
+        """A follower's loop: make each device call rank 0 broadcasts, in
+        order, until the stop.  A call that raises here raised on rank 0 on
+        the same inputs, which answered it; the loop goes on."""
+        while True:
+            op, kw = self._peers.recv()
+            if op == "stop":
+                return
+            try:
+                if op == "supports.add":
+                    self._insert_cache(kw["cache_id"], self.pipe.precompute_supports(
+                        kw["sup"][None], kw["msk"][None]))
+                elif op == "supports.drop":
+                    self._caches.pop(kw["cache_id"], None)
+                elif op == "cached":
+                    self.pipe.predict_cached_async(kw["q"], self._caches[kw["cache_id"]],
+                                                   **kw["opts"]).result(need_seg=False)
+                elif op == "episode":
+                    self._episode_call(kw["q"], kw["sup"], kw["msk"], kw["shot_mask"],
+                                       kw["opts"]).result(need_seg=False)
+                elif op == "warm_start":
+                    self._warm_paths()
+                else:
+                    raise ValueError(f"unknown device call {op!r}")
+            except Exception:
+                traceback.print_exc()
+
+    def _insert_cache(self, cache_id: str, cache) -> None:
+        """Add a cache, FIFO-evicting past --max_caches (under the lock, so
+        that every rank inserts and evicts in the same order)."""
+        self._caches[cache_id] = cache
+        while len(self._caches) > self._max_caches:
+            self._caches.popitem(last=False)  # FIFO eviction
 
     def _dispatch_pipelined(self, dispatch):
         """Run `dispatch` (device-call enqueue) under the lock; return its
@@ -356,7 +480,7 @@ class ModelServer:
                 "caches": len(self._caches), "model": self.model_desc,
                 "bsz": self.bsz, "nshot": self.nshot,
                 "batch_window_ms": self.batch_window * 1e3,
-                "mesh": "",  # the daemon serves on one device (ROADMAP A11b)
+                "mesh": "" if self.pipe is None else mesh_desc(self.pipe),
                 "mode": "artifact" if self.artifact is not None else "pipeline"}
 
     def stats_snapshot(self) -> dict:
@@ -368,6 +492,11 @@ class ModelServer:
                                   "(the exported program is a fixed-shape "
                                   "full episode); use /v1/segment with "
                                   "supports+masks")
+        if self.pipe.shot_mesh is not None:
+            raise ServeError(400, "the support-KV cache does not compose "
+                                  "with shot-parallel serving "
+                                  "(--num_shot_shards); use /v1/segment "
+                                  "with supports+masks")
         images = _as_list(body.get("images") or [])
         masks = _as_list(body.get("masks") or [])
         if not images or len(images) != len(masks):
@@ -377,11 +506,9 @@ class ModelServer:
         msk = self._decode_masks(masks)
         cache_id = uuid.uuid4().hex[:12]
         with self._device():  # device work: VAE encodes + support UNet pass
+            self._send("supports.add", cache_id=cache_id, sup=sup, msk=msk)
             cache = self.pipe.precompute_supports(sup[None], msk[None])
-        with self._lock:  # host-only cache mutation — not device time
-            self._caches[cache_id] = cache
-            while len(self._caches) > self._max_caches:
-                self._caches.popitem(last=False)  # FIFO eviction
+            self._insert_cache(cache_id, cache)
         return {"cache_id": cache_id, "n_shots": len(images)}
 
     def _get_cache(self, cache_id: str):
@@ -400,6 +527,7 @@ class ModelServer:
         with self._lock:
             if self._caches.pop(cache_id, None) is None:
                 raise ServeError(404, f"unknown cache_id {cache_id}")
+            self._send("supports.drop", cache_id=cache_id)
         return {"ok": True}
 
     def segment(self, body: dict) -> dict:
@@ -474,20 +602,32 @@ class ModelServer:
         compile: what is cold on the card is the nvcc build of each kernel
         library at first use and the caching allocator.  So: build every
         library the configured path launches, then run BOTH the cached path
-        and the one-off episode path at every batch bucket (incl. their
-        device mask stages) on throwaway random inputs.  Without it, the
-        first request builds the kernels under the dispatch lock.  Artifact
-        mode runs one artifact call (its kernels build on that call)."""
+        (not under a shot mesh, which has no cache) and the one-off episode
+        path at every batch bucket (incl. their device mask stages) on
+        throwaway random inputs; under a mesh every rank does.  Without it,
+        the first request builds the kernels under the dispatch lock.
+        Artifact mode runs one artifact call (its kernels build on that
+        call)."""
+        if self.pipe is None:
+            sup, msk, q1 = self._warm_inputs()
+            b = self.bsz
+            self.artifact(np.repeat(q1, b, axis=0), np.broadcast_to(sup, (b,) + sup.shape[1:]),
+                          np.broadcast_to(msk, (b,) + msk.shape[1:])).cpu()
+            return
+        with self._lock:
+            self._send("warm_start")
+            self._warm_paths()
+
+    def _warm_inputs(self):
         s = self.img_size
         rng = np.random.default_rng(0)
         sup = rng.integers(0, 256, (1, self.nshot, s, s, 3), np.uint8)
         msk = (rng.random((1, self.nshot, s, s)) > 0.5).astype(np.uint8)
         q1 = rng.integers(0, 256, (1, s, s, 3), np.uint8)
-        if self.pipe is None:
-            b = self.bsz
-            self.artifact(np.repeat(q1, b, axis=0), np.broadcast_to(sup, (b,) + sup.shape[1:]),
-                          np.broadcast_to(msk, (b,) + msk.shape[1:])).cpu()
-            return
+        return sup, msk, q1
+
+    def _warm_paths(self) -> None:
+        sup, msk, q1 = self._warm_inputs()
         if self.pipe.device.type == "cuda":
             from diffews_tpu_torch.ops import _build
 
@@ -497,12 +637,13 @@ class ModelServer:
             _build.build(names)
             for name in names:
                 _build.load(name)
-        cache = self.pipe.precompute_supports(sup, msk)
+        cache = self.pipe.precompute_supports(sup, msk) if self.pipe.shot_mesh is None else None
         for bucket in self.buckets:
-            self.pipe.predict_cached_async(
-                np.repeat(q1, bucket, axis=0), cache,
-                r_threshold=self.r_threshold,
-                mask_on_device=True).result(need_seg=False)
+            if cache is not None:
+                self.pipe.predict_cached_async(
+                    np.repeat(q1, bucket, axis=0), cache,
+                    r_threshold=self.r_threshold,
+                    mask_on_device=True).result(need_seg=False)
             self.pipe.predict_async(
                 np.repeat(q1, bucket, axis=0),
                 np.broadcast_to(sup, (bucket,) + sup.shape[1:]),
@@ -531,13 +672,23 @@ class ModelServer:
         # mask_on_device + need_seg=False: the default masks-only response
         # transfers the packed bool mask instead of the full uint8 seg
         # (~24x fewer d2h bytes — pipeline.device_mask_from_seg)
-        out = self._await(self._dispatch_pipelined(
-            lambda: self.pipe.predict_cached_async(qp, cache,
-                                                   r_threshold=r_thr,
-                                                   threshold=thr,
-                                                   mask_on_device=True)),
+        out = self._await(self._dispatch_pipelined(self._cached_call(
+            qp, cache_id, cache, r_threshold=r_thr, threshold=thr, mask_on_device=True)),
                           need_seg=need_seg)
         return _slice_out(out, n)
+
+    def _cached_call(self, qp, cache_id, cache, **opts):
+        """The dispatch of a cached call: under the lock the followers get
+        it, then rank 0 makes it.  Under a mesh a cache evicted since the
+        lookup is gone on every rank (404); one process keeps the looked-up
+        cache alive for the call."""
+        def dispatch():
+            if self._peers is not None:
+                if cache_id not in self._caches:
+                    raise ServeError(404, f"unknown cache_id {cache_id}")
+                self._send("cached", cache_id=cache_id, q=qp, opts=opts)
+            return self.pipe.predict_cached_async(qp, cache, **opts)
+        return dispatch
 
     def _segment_cached_batched(self, q, cache_id, r_thr, thr,
                                 need_seg=True):
@@ -572,8 +723,7 @@ class ModelServer:
                     # batch executes/transfers, the next window's leader
                     # (or a one-off request) dispatches behind it
                     pend = self._dispatch_pipelined(
-                        lambda qp=qp, cache=cache:
-                            self.pipe.predict_cached_async(qp, cache))
+                        self._cached_call(qp, cache_id, cache))
                     try:
                         img_dev = pend._img
                         pairs = {(it.r_thr, it.thr) for it in chunk
@@ -626,27 +776,36 @@ class ModelServer:
                 [msk, np.repeat(msk[-1:], self.nshot - ns, axis=0)])
             shot_mask = np.zeros((nb, self.nshot), bool)
             shot_mask[:, :ns] = True
-        supb = np.broadcast_to(sup[None], (nb,) + sup.shape)
-        mskb = np.broadcast_to(msk[None], (nb,) + msk.shape)
 
         def dispatch():
             if self.artifact is not None:
                 # the exported program's signature is frozen at uint8
                 # {0,1} masks (serving.export_predict specs); the exported
                 # graph ends at the seg image, so thresholding stays host
-                img = self.artifact(qp, supb, mskb.astype(np.uint8),
-                                    shot_mask)
+                img = self.artifact(qp, _each_row(sup, nb),
+                                    _each_row(msk, nb).astype(np.uint8), shot_mask)
                 return PendingSeg(img, r_thr, thr)
-            return self.pipe.predict_async(qp, supb, mskb,
-                                           shot_mask=shot_mask,
-                                           r_threshold=r_thr, threshold=thr,
-                                           mask_on_device=True)
+            opts = dict(r_threshold=r_thr, threshold=thr, mask_on_device=True)
+            self._send("episode", q=qp, sup=sup, msk=msk, shot_mask=shot_mask, opts=opts)
+            return self._episode_call(qp, sup, msk, shot_mask, opts)
 
         # artifact PendingSeg has no device mask -> need_seg is a no-op
         # there (the host formula needs the seg anyway)
         out = self._await(self._dispatch_pipelined(dispatch),
                           need_seg=need_seg)
         return _slice_out(out, n)
+
+    def _episode_call(self, qp, sup, msk, shot_mask, opts) -> PendingSeg:
+        """`predict_async` of a one-off episode: the request's supports and
+        masks (N, S, S, ...) serve every row of the padded batch `qp`."""
+        nb = qp.shape[0]
+        return self.pipe.predict_async(qp, _each_row(sup, nb), _each_row(msk, nb),
+                                       shot_mask=shot_mask, **opts)
+
+
+def _each_row(x: np.ndarray, rows: int) -> np.ndarray:
+    """`x` for each of `rows` batch rows (a broadcast view)."""
+    return np.broadcast_to(x[None], (rows,) + x.shape)
 
 
 def _slice_out(out, n: int):
@@ -826,11 +985,16 @@ def build_parser() -> argparse.ArgumentParser:
                         "before reading them (a bogus Content-Length must "
                         "not allocate)")
     p.add_argument("--num_data_shards", type=int, default=1,
-                   help="shard the server batch over this many devices; not "
-                        "ported (ROADMAP A11b), only 1")
+                   help="shard the server batch over this many devices "
+                        "(('data',) mesh; --bsz must divide evenly); one "
+                        "process per device under torchrun")
     p.add_argument("--num_shot_shards", type=int, default=1,
-                   help="shard episode support shots over this many "
-                        "devices; not ported (ROADMAP A11b), only 1")
+                   help="shard episode SUPPORT SHOTS over this many devices "
+                        "(('shots',) mesh with an exact per-attention softmax "
+                        "merge; --nshot must divide evenly; composes with "
+                        "--num_data_shards as a 2-D mesh). Disables "
+                        "/v1/supports caching (the cache does not compose with "
+                        "the cross-device merge); under torchrun")
     p.add_argument("--half_precision", action="store_true",
                    help="bf16 compute (the serving configuration on the card)")
     p.add_argument("--attn_impl", default="auto", choices=sorted(ATTN_IMPLS),
@@ -851,13 +1015,28 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _setup_meshes(args, device_type: str):
+    """(mesh, shot_mesh) of a torchrun launch on `device_type`'s backend:
+    the JAX daemon's meshes (`serve.py:874-890`)."""
+    nds, nss = args.num_data_shards, args.num_shot_shards
+    if not mesh_lib.launched():
+        raise RuntimeError(
+            "--num_data_shards / --num_shot_shards > 1: launch one process per device "
+            f"with torchrun --nproc_per_node {nds * nss} -m diffews_tpu_torch.cli.serve ...")
+    mesh_lib.maybe_initialize_distributed(device_type=device_type)
+    if nss > 1:
+        return None, mesh_lib.make_shot_mesh(device_type, nss, n_data=nds)
+    return mesh_lib.make_mesh(device_type, nds), None
+
+
 def make_server(args) -> ModelServer:
     # raised before any checkpoint or artifact is touched
-    if args.num_data_shards > 1 or args.num_shot_shards > 1:
-        raise NotImplementedError(
-            "--num_data_shards / --num_shot_shards > 1: the daemon's request "
-            "broadcast to one process per device is not ported yet (ROADMAP A11b)")
+    nds, nss = args.num_data_shards, args.num_shot_shards
     if args.artifact:
+        if nds > 1 or nss > 1:
+            raise SystemExit("--artifact serves a fixed single-device "
+                             "program; export with the desired sharding "
+                             "instead of --num_*_shards")
         from diffews_tpu_torch import serving
 
         mod = serving.load(args.artifact)
@@ -871,14 +1050,26 @@ def make_server(args) -> ModelServer:
             r_threshold=args.r_threshold,
             dispatch_depth=args.dispatch_depth,
             max_body_mb=args.max_body_mb, model_desc=args.artifact)
+    if nds > 1 and args.bsz % nds:
+        raise SystemExit(f"--bsz {args.bsz} must be divisible by "
+                         f"--num_data_shards {nds}")
+    if nss > 1 and args.nshot % nss:
+        raise SystemExit(f"--nshot {args.nshot} must be divisible by "
+                         f"--num_shot_shards {nss}")
     # no card and no --device cpu: raise before the checkpoint is loaded
     device = resolve_device(args.device)
+    mesh = shot_mesh = peers = None
+    if nds > 1 or nss > 1:
+        mesh, shot_mesh = _setup_meshes(args, device.type)
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
+        peers = _Peers()
     pipe = DiffewsPipeline.from_pretrained(
         args.checkpoint, unet_dir=args.unet_ckpt_path,
         scheduler_dir=args.scheduler_load_path, device=device,
         compute_dtype=torch.bfloat16 if args.half_precision else torch.float32,
         attn_impl=ATTN_IMPLS[args.attn_impl], vae_impl=args.vae_impl,
-        unet_int8=args.unet_int8)
+        unet_int8=args.unet_int8, mesh=mesh, shot_mesh=shot_mesh)
     return ModelServer(pipe=pipe, bsz=args.bsz, nshot=args.nshot,
                        img_size=args.img_size, r_threshold=args.r_threshold,
                        max_caches=args.max_caches,
@@ -886,7 +1077,7 @@ def make_server(args) -> ModelServer:
                        dispatch_depth=args.dispatch_depth,
                        max_body_mb=args.max_body_mb,
                        model_desc=args.checkpoint,
-                       batch_buckets=args.batch_buckets)
+                       batch_buckets=args.batch_buckets, peers=peers)
 
 
 class _DrainingHTTPServer(ThreadingHTTPServer):
@@ -900,9 +1091,33 @@ class _DrainingHTTPServer(ThreadingHTTPServer):
         super().shutdown()
 
 
+def _follow(server: ModelServer) -> None:
+    """A follower rank: no HTTP server; the device calls rank 0 hands it,
+    until its stop.  The SIGTERM that torchrun forwards to every rank is
+    ignored here: the follower stops when rank 0 has drained."""
+    try:
+        signal.signal(signal.SIGTERM, lambda signum, frame: None)
+    except ValueError:
+        pass  # not the main thread
+    server.follow()
+    print(f"serve: rank {server._peers.rank} stopped", flush=True)
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     server = make_server(args)
+    try:
+        if server.follower:
+            return _follow(server)
+        _serve(args, server)
+    finally:
+        if server._peers is not None and dist.is_initialized():
+            dist.destroy_process_group()
+    if server.peer_error is not None:
+        raise SystemExit(f"serve: a follower rank failed ({server.peer_error}); stopped")
+
+
+def _serve(args, server: ModelServer) -> None:
     if args.warm_start:
         t0 = time.monotonic()
         print("warm-start: building kernels and running serving paths "
@@ -917,10 +1132,12 @@ def main(argv=None):
     # Graceful stop on SIGTERM (the orchestrator stop signal — kubernetes,
     # systemd, SLURM): stop ACCEPTING, finish in-flight requests, exit 0.
     # shutdown() must not run on the signal frame (it joins serve_forever's
-    # own loop), so hand it to a thread.
-    def _stop(signum, frame):
+    # own loop), so hand it to a thread.  A follower rank that fails stops
+    # the daemon the same way.
+    def _stop(signum=None, frame=None):
         threading.Thread(target=httpd.shutdown, daemon=True).start()
 
+    server.on_peer_failure = _stop
     try:
         signal.signal(signal.SIGTERM, _stop)
     except ValueError:
@@ -931,6 +1148,7 @@ def main(argv=None):
         pass
     finally:
         httpd.server_close()  # joins in-flight handler threads
+        server.close()  # then the followers stop
         print("serve: drained and stopped", flush=True)
 
 

@@ -16,19 +16,25 @@ differs:
     flash (`pipeline.ATTN_IMPLS`);
   - multi-device training runs one process per device under `torchrun`
     (`torchrun --nproc_per_node N -m diffews_tpu_torch.cli.train
-    --num_data_shards N [--fsdp] ...`; over several nodes torchrun's
-    `--nnodes` / `--node_rank` give the node split, and `--multihost` is
-    accepted for parity with the JAX CLI): data parallelism with the
-    gradients mean-reduced over "data", or FSDP with the state born sharded
-    (`parallel/mesh.py`).  A torch node is a JAX process: its ranks sample
-    the node's batch alike (seeds offset by the node index, as JAX offsets
-    them by the process index) and each keeps its rows, so one node of N
-    ranks runs JAX's one-process N-chip stream.  Rank 0 alone logs,
-    validates and writes; checkpoints equal an unsharded run's.  The mesh
-    runs over the device's backend (NCCL on the card, gloo on the CPU).
-    A preemption stops every rank one step after the signal: the ranks
-    agree on the stop step a step late, so that no step waits on the host.
-    `--num_model_shards` above 1 raises (tensor parallelism, ROADMAP A11b);
+    --num_data_shards N [--num_model_shards M] [--fsdp] ...`; over several
+    nodes torchrun's `--nnodes` / `--node_rank` give the node split, and
+    `--multihost` is accepted for parity with the JAX CLI): data
+    parallelism with the gradients mean-reduced over "data", FSDP with the
+    state born sharded over "data", and tensor parallelism over a "model"
+    axis (`--num_model_shards`; the data axis defaults to the world // M):
+    the attention and feed-forward weights split as JAX's `_TP_RULES`
+    split them (`parallel/mesh.py`, `parallel/tensor_parallel.py`), the
+    rows of the batch over "data" and replicated over "model"; LoRA
+    adapters stay replicated over "model", as the JAX CLI never shards
+    them.  A torch node is a JAX process: its ranks sample the node's batch
+    alike (seeds offset by the node index, as JAX offsets them by the
+    process index) and each keeps its rows, so one node of N ranks runs
+    JAX's one-process N-chip stream.  Rank 0 alone logs, validates (on the
+    gathered whole model) and writes; checkpoints equal an unsharded run's.
+    The mesh runs over the device's backend (NCCL on the card, gloo on the
+    CPU).  A preemption stops every rank one step after the signal: the
+    ranks agree on the stop step a step late, so that no step waits on the
+    host;
   - the optimizer, EMA and step state is `train_state.pt`
     (`training/checkpoints.py`), not flax msgpack;
   - each step's posterior-sample noise is drawn from a CPU generator keyed
@@ -135,7 +141,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "takes its node split from torchrun (--nnodes, --node_rank), "
                         "and outside torchrun the flag raises")
     p.add_argument("--num_model_shards", type=int, default=1,
-                   help="tensor-parallel size; only 1 (ROADMAP A11b)")
+                   help="tensor-parallel size: the attention and feed-forward "
+                        "weights split over this many ranks (under torchrun)")
     # LoRA (no reference equivalent: the reference only fine-tunes the
     # whole UNet); checkpoints still write the merged model
     p.add_argument("--lora_rank", type=int, default=0,
@@ -292,22 +299,24 @@ def _rank_noise(noise: torch.Tensor, b: int, n: int, rows: slice,
 
 
 def _setup_mesh(args, device_type: str):
-    """(mesh, host_index, host_count, owns_group): the ("data",) mesh of a
-    torchrun launch (None for one plain process) on `device_type`'s
-    backend, with the JAX CLI's checks."""
-    if args.num_model_shards > 1:
-        raise NotImplementedError("--num_model_shards > 1: tensor parallelism is not "
-                                  "ported (ROADMAP A11b)")
-    if not (args.fsdp or args.multihost or args.num_data_shards > 1 or mesh_lib.launched()):
+    """(mesh, host_index, host_count, owns_group): the ("data",) or ("data",
+    "model") mesh of a torchrun launch (None for one plain process) on
+    `device_type`'s backend, with the JAX CLI's checks."""
+    if args.num_model_shards < 1:
+        raise SystemExit(f"--num_model_shards must be >= 1, got {args.num_model_shards}")
+    if not (args.fsdp or args.multihost or args.num_data_shards > 1
+            or args.num_model_shards > 1 or mesh_lib.launched()):
         return None, 0, 1, False
     if not mesh_lib.launched():
+        n = max(args.num_data_shards, 1) * args.num_model_shards
         raise RuntimeError(
-            "--fsdp / --multihost / --num_data_shards > 1: launch one process per "
-            f"device with torchrun --nproc_per_node {max(args.num_data_shards, 1)} "
+            "--fsdp / --multihost / --num_data_shards > 1 / --num_model_shards > 1: "
+            f"launch one process per device with torchrun --nproc_per_node {n} "
             "-m diffews_tpu_torch.cli.train ...")
     owns = not torch.distributed.is_initialized()
     host_idx, host_cnt = mesh_lib.maybe_initialize_distributed(device_type=device_type)
-    mesh = mesh_lib.make_mesh(device_type, args.num_data_shards or None)
+    mesh = mesh_lib.make_mesh(device_type, args.num_data_shards or None,
+                              args.num_model_shards)
     return mesh, host_idx, host_cnt, owns
 
 
@@ -395,7 +404,8 @@ def _train(args, device) -> dict:
     unet, unet_cfg = bundle.unet, bundle.unet_cfg
     bundle.unet = None
 
-    layout = None  # the FSDP layout of the state, under --fsdp
+    layout = None  # the sharded state's layout, under --fsdp or --num_model_shards
+    tensor_parallel = args.num_model_shards > 1
     base_c = base_host = None
     if args.lora_rank > 0:
         # the f32 base stays on the host for the checkpoint merges (the
@@ -413,13 +423,17 @@ def _train(args, device) -> dict:
                   f"{n_lora / 1e6:.2f}M trainable params")
         state = init_state(tcfg, lora_lib.flatten(lora0), device=device)
         step_fn = lora_lib.make_lora_train_step(tcfg, unet, data_group=data_group)
-    elif args.fsdp:
-        # born sharded: each rank moves only its shards to the device; the
+    elif args.fsdp or tensor_parallel:
+        # born sharded: each rank moves only its parts to the device; the
         # module stays on the host as the structure the gathered weights
-        # are bound to
+        # and this rank's tensor-parallel parts are bound to
         report["trainable_params"] = sum(p.numel() for p in unet.parameters())
-        state, layout = mesh_lib.init_state_fsdp(tcfg, dict(unet.named_parameters()), mesh,
-                                                 device=device)
+        kw = dict(tensor_parallel=tensor_parallel, units=mesh_lib.tp_units(unet),
+                  device=device)
+        params = dict(unet.named_parameters())
+        state, layout = (mesh_lib.init_state_fsdp(tcfg, params, mesh, **kw) if args.fsdp
+                         else mesh_lib.init_state_sharded(tcfg, params, mesh, fsdp=False,
+                                                          **kw))
         step_fn = make_train_step(tcfg, unet, layout=layout)
     else:
         # the masters are the module's own parameters, moved once
@@ -431,8 +445,8 @@ def _train(args, device) -> dict:
 
     def merged_unet_params(st):
         """The full UNet weights: the live masters under full fine-tuning,
-        the compute-dtype base + adapters in LoRA mode; under FSDP gathered
-        to the host (a collective every rank joins)."""
+        the compute-dtype base + adapters in LoRA mode; under a sharded
+        state gathered to the host (collectives every rank joins)."""
         if layout is not None:
             return tck.host_fetch(st.params, layout)
         if args.lora_rank == 0:
@@ -574,8 +588,8 @@ def _train(args, device) -> dict:
         """Checkpoint the state; in LoRA mode `unet/` / `unet_ema/` get the
         merged model (reference layout), merged on the host from the f32
         base, and the raw adapters ride in `train_state.pt`.  Every rank
-        calls it (under FSDP the snapshot gathers the shards); rank 0
-        alone writes."""
+        calls it (under a sharded state the snapshot gathers the parts);
+        rank 0 alone writes."""
         if not is_main and layout is None:
             return None
         kw = {"layout": layout, "write": is_main}
@@ -616,8 +630,8 @@ def _train(args, device) -> dict:
     last_saved_step = global_step if global_step and resumed_in_output_dir else -1
     # a signal can straddle a step boundary between ranks: they agree on the
     # stop step, or one rank would enter the final save's gathers while
-    # another runs the next step
-    vote = mesh_lib.StopVote(data_group, device) if mesh is not None else None
+    # another runs the next step (the vote spans the world, both axes)
+    vote = mesh_lib.StopVote(None, device) if mesh is not None else None
     while global_step < args.max_train_steps:
         if is_main and args.profile_step and global_step + 1 == args.profile_step:
             # steps [profile_step, profile_step + profile_num_steps) land in
@@ -690,7 +704,8 @@ def _train(args, device) -> dict:
                 log_scalar("nonfinite_steps", nf, global_step)
 
         if args.validation_steps and global_step % args.validation_steps == 0:
-            # the weights are gathered on every rank (FSDP); rank 0 validates
+            # the weights are gathered on every rank (a sharded state); rank 0
+            # validates the whole model
             vparams = merged_unet_params(state)
             if is_main:
                 run_validation(vparams, global_step)

@@ -23,10 +23,12 @@ import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from diffews_tpu_torch.ops.groupnorm import group_norm_act
+from diffews_tpu_torch.parallel import tensor_parallel as tp
 
 
 # ---------------------------------------------------------------------------
@@ -237,20 +239,37 @@ class Upsample2D(nn.Module):
 class GEGLU(nn.Module):
     def __init__(self, cin: int, cout: int):
         super().__init__()
+        self.cout = cout
         self.proj = nn.Linear(cin, cout * 2)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h, gate = self.proj(x).chunk(2, dim=-1)
+    def forward(self, x: torch.Tensor, model_group=None) -> torch.Tensor:
+        """Column-parallel over `model_group`: `proj` holds this rank's
+        block of the `h` rows and the same block of the `gate` rows, and the
+        replicated bias is sliced to them."""
+        if model_group is None:
+            y = self.proj(x)
+        else:
+            x = tp.copy_to_model(x, model_group)
+            rank, n = dist.get_rank(model_group), dist.get_world_size(model_group)
+            bias = tp.scatter_to_model(self.proj.bias, 0, tp.halves(self.cout, n, rank),
+                                       model_group)
+            y = F.linear(x, self.proj.weight, bias)
+        h, gate = y.chunk(2, dim=-1)
         return h * gelu(gate)
 
 
 class FeedForward(nn.Module):
-    """diffusers FeedForward with GEGLU: net.0.proj -> chunk -> net.2."""
+    """diffusers FeedForward with GEGLU: net.0.proj -> chunk -> net.2;
+    under `model_group` `net.2` is row-parallel (its bias added once, after
+    the sum of the partial products)."""
 
     def __init__(self, c: int, mult: int = 4):
         super().__init__()
         self.net = nn.ModuleList(
             [GEGLU(c, c * mult), nn.Dropout(0.0), nn.Linear(c * mult, c)])
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.net[2](self.net[0](x))
+    def forward(self, x: torch.Tensor, model_group=None) -> torch.Tensor:
+        h, out = self.net[0](x, model_group), self.net[2]
+        if model_group is None:
+            return out(h)
+        return tp.reduce_from_model(F.linear(h, out.weight), model_group) + out.bias

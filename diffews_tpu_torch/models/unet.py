@@ -37,6 +37,15 @@ partial softmaxes over the group
 (`ops.attention.shot_parallel_fused_kv_attention`), so each rank returns
 the whole query prediction.
 
+Tensor parallelism (`model_group`, JAX's "model" mesh axis with
+`parallel.mesh._TP_RULES`): the modules' weights are this rank's parts
+(bound by the training step): whole heads of `to_q` / `to_k` / `to_v`
+(rows) and `to_out.0` (columns), and a block of each GEGLU half of
+`ff.net.0.proj` with the matching columns of `ff.net.2`.  Each attention
+and feed-forward runs column-parallel then row-parallel around the
+collectives of `parallel/tensor_parallel.py`; every rank returns the whole
+prediction.
+
 `state_dict` keys are the diffusers `UNet2DConditionModel` keys plus
 `conv_in_ref.*`.
 """
@@ -47,6 +56,7 @@ from dataclasses import dataclass
 from typing import Dict, Iterator, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -56,9 +66,9 @@ from diffews_tpu_torch.models.layers import (Conv2d, Downsample2D, FeedForward,
                                              TimestepEmbedding, Upsample2D, silu,
                                              timestep_embedding)
 from diffews_tpu_torch.ops.attention import (cross_attention, fused_kv_attention,
-                                             merge_heads, shot_parallel_fused_kv_attention,
-                                             split_heads)
+                                             merge_heads, shot_parallel_fused_kv_attention)
 from diffews_tpu_torch.ops.resize import nearest_resize
+from diffews_tpu_torch.parallel import tensor_parallel as tp
 
 ATTN_EPS = 1e-6  # Transformer2D GroupNorm epsilon
 
@@ -75,22 +85,44 @@ class _Streams:
     kv_capture: Optional[list] = None   # receives (k_sup, v_sup, bias) per site
     kv_iter: Optional[Iterator] = None  # yields captured entries, in site order
     shot_group: object = None           # process group the shots are sharded over
+    model_group: object = None          # process group of the tensor-parallel parts
 
 
 class Attention(nn.Module):
     def __init__(self, q_dim: int, kv_dim: int, heads: int):
         super().__init__()
-        self.heads = heads
+        self.heads, self.head_dim = heads, q_dim // heads
         self.to_q = nn.Linear(q_dim, q_dim, bias=False)
         self.to_k = nn.Linear(kv_dim, q_dim, bias=False)
         self.to_v = nn.Linear(kv_dim, q_dim, bias=False)
         self.to_out = nn.ModuleList([nn.Linear(q_dim, q_dim), nn.Dropout(0.0)])
 
+    def _qkv(self, h: torch.Tensor, ctx: torch.Tensor, group):
+        """q from `h`, k and v from `ctx`, split into this rank's heads (the
+        projections' rows the module holds)."""
+        if group is not None:  # self-attention's one input: one copy, one gradient sum
+            same = ctx is h
+            h = tp.copy_to_model(h, group)
+            ctx = h if same else tp.copy_to_model(ctx, group)
+        return self._heads(self.to_q(h)), self._heads(self.to_k(ctx)), self._heads(self.to_v(ctx))
+
+    def _heads(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, S, h·d) -> (B, S, h, d): the heads this rank holds (h may be 0
+        where the heads do not divide the model axis)."""
+        b, s, c = x.shape
+        return x.reshape(b, s, c // self.head_dim, self.head_dim)
+
+    def _out(self, x: torch.Tensor, group) -> torch.Tensor:
+        """`to_out.0`; row-parallel over `group`: the partial products
+        summed, then the bias added once."""
+        lin = self.to_out[0]
+        if group is None:
+            return lin(x)
+        return tp.reduce_from_model(F.linear(x, lin.weight), group) + lin.bias
+
     def self_attention(self, h: torch.Tensor, st: _Streams) -> torch.Tensor:
         """KV-fused self-attention; h: (R+B, S, C), support rows first."""
-        q = split_heads(self.to_q(h), self.heads)
-        k = split_heads(self.to_k(h), self.heads)
-        v = split_heads(self.to_v(h), self.heads)
+        q, k, v = self._qkv(h, h, st.model_group)
         if st.kv_iter is not None:
             entry = next(st.kv_iter, None)
             if entry is None:
@@ -111,8 +143,8 @@ class Attention(nn.Module):
             hd = q.shape[-1]
             out_ref = fused_kv_attention(q[:r], k[:r], v[:r], None, None,
                                          impl=st.attn_impl)
-            k_sup = k[:r].reshape(b, st.n_shots, s, self.heads, hd)
-            v_sup = v[:r].reshape(b, st.n_shots, s, self.heads, hd)
+            k_sup = k[:r].reshape(b, st.n_shots, s, k.shape[2], hd)
+            v_sup = v[:r].reshape(b, st.n_shots, s, v.shape[2], hd)
             if st.kv_capture is not None:
                 # copies of the support rows alone: a view would keep the
                 # whole site's K and V (query rows too) alive in the cache
@@ -127,13 +159,11 @@ class Attention(nn.Module):
                     q[r:], k[r:], v[r:], k_sup, v_sup, shot_mask=st.shot_mask,
                     support_bias=st.sup_bias, impl=st.attn_impl)
             out = torch.cat([out_ref, out_tag], dim=0)
-        return self.to_out[0](merge_heads(out))
+        return self._out(merge_heads(out), st.model_group)
 
-    def cross(self, h: torch.Tensor, ctx: torch.Tensor) -> torch.Tensor:
-        q = split_heads(self.to_q(h), self.heads)
-        k = split_heads(self.to_k(ctx), self.heads)
-        v = split_heads(self.to_v(ctx), self.heads)
-        return self.to_out[0](merge_heads(cross_attention(q, k, v)))
+    def cross(self, h: torch.Tensor, ctx: torch.Tensor, model_group=None) -> torch.Tensor:
+        q, k, v = self._qkv(h, ctx, model_group)
+        return self._out(merge_heads(cross_attention(q, k, v)), model_group)
 
 
 class BasicTransformerBlock(nn.Module):
@@ -148,8 +178,8 @@ class BasicTransformerBlock(nn.Module):
 
     def forward(self, h, ctx, st: _Streams):
         h = h + self.attn1.self_attention(self.norm1(h), st)
-        h = h + self.attn2.cross(self.norm2(h), ctx)
-        return h + self.ff(self.norm3(h))
+        h = h + self.attn2.cross(self.norm2(h), ctx, st.model_group)
+        return h + self.ff(self.norm3(h), st.model_group)
 
 
 class Transformer2DModel(nn.Module):
@@ -270,6 +300,7 @@ class UNet2DConditionModel(nn.Module):
         kv_capture: Optional[list] = None,
         kv_cache=None,
         shot_group=None,
+        model_group=None,
     ) -> torch.Tensor:
         """Joint support+query forward.
 
@@ -291,6 +322,9 @@ class UNet2DConditionModel(nn.Module):
         `ref_sample`, `ref_context`, `shot_mask` and `ref_mask` carry this
         rank's shots, `sample`, `context` and `timestep` the same on every
         rank; each rank returns the whole query prediction.
+        model_group: optional process group of the tensor-parallel parts
+        the modules' attention and feed-forward weights hold (each rank
+        passes the same inputs and returns the whole prediction).
         Returns (B, H, W, out_channels) for the query rows."""
         if kv_cache is not None and ref_sample is not None:
             raise ValueError("kv_cache replaces the support stream; "
@@ -302,6 +336,11 @@ class UNet2DConditionModel(nn.Module):
             raise ValueError("the support-KV cache does not compose with "
                              "shot-parallel serving (a shard's cache would skip "
                              "the cross-device softmax merge)")
+        if model_group is not None and (shot_group is not None or kv_capture is not None
+                                        or kv_cache is not None):
+            raise ValueError("tensor parallelism (model_group) is a training path: it "
+                             "does not compose with shot-parallel serving or the "
+                             "support-KV cache")
         if remat and (kv_capture is not None or kv_cache is not None):
             # checkpoint runs each layer again in the backward pass, which
             # would consume the cache twice and capture every site twice
@@ -362,7 +401,7 @@ class UNet2DConditionModel(nn.Module):
 
         def streams(sid):
             return _Streams(ref_rows, n_shots, shot_mask, sup_biases.get(sid), attn_impl,
-                            kv_capture, kv_iter, shot_group)
+                            kv_capture, kv_iter, shot_group, model_group)
 
         def layer(fn, *args):
             return checkpoint(fn, *args, use_reentrant=False) if remat else fn(*args)

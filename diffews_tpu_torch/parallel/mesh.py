@@ -1,4 +1,4 @@
-"""Device meshes, FSDP sharding rules and the process-group bootstrap.
+"""Device meshes, sharding rules and the process-group bootstrap.
 
 Port of `diffews_tpu/parallel/mesh.py`.  A JAX process drives every chip
 of its host; in PyTorch one process drives one device.  So:
@@ -7,34 +7,50 @@ of its host; in PyTorch one process drives one device.  So:
   - a JAX process (a host) is a torch node as `torchrun` gives it
     (`GROUP_RANK`, `LOCAL_WORLD_SIZE`);
   - a mesh is a `torch.distributed.device_mesh.DeviceMesh` with JAX's axis
-    names: `("data",)`, `("shots",)` or `("data", "shots")`;
+    names: `("data",)`, `("data", "model")`, `("shots",)` or
+    `("data", "shots")`; rank r of a ("data", "model") mesh sits at
+    (r // n_model, r % n_model), the layout of JAX's
+    `devices.reshape(n_data, n_model)`;
   - the backend follows the mesh's device type, never a probe: NCCL for
     "cuda", gloo for "cpu".  A gloo mesh may carry CUDA tensors, but only
-    through `all_reduce` and `broadcast` (what the shot merge and the
-    data-parallel gradient mean need): that runs two ranks on one card,
-    which NCCL refuses.
+    through `all_reduce` and `broadcast`: that runs two ranks on one card,
+    which NCCL refuses.  So every collective of the shot merge, the
+    gradient mean, tensor parallelism and the pipeline's row gather is an
+    `all_reduce`; only FSDP's gather of the "data" axis is an `all_gather`.
 
 Every mesh spans the whole world: the CLIs check that `WORLD_SIZE` equals
-the product of their shard counts.  Tensor parallelism (`n_model > 1`,
-JAX's `_TP_RULES`) is not ported (ROADMAP A11b).
+the product of their shard counts.
 
-FSDP (ZeRO-3 style, `init_state_fsdp`): every leaf of at least
-`_FSDP_MIN_ELEMS` elements is split over "data" along its largest evenly
-divisible dim; each rank holds its shard of the float32 master, the Adam
-moments and the EMA, and gathers the whole model in the compute dtype
-before each micro-step (`FsdpLayout.gather`).  Gradients are mean-reduced
-over "data" with `all_reduce` and each rank keeps its shard; gloo has no
-`reduce_scatter`, and one path serves both backends.
+The sharding rules are JAX's (`param_pspec_tree`), applied to the port's
+flat name -> tensor dicts in JAX's logical dim order, so each leaf's spec
+names the same logical dims as JAX's:
+
+  - tensor parallelism (`_TP_RULES`): the attention projections and the
+    feed-forward matmuls carry "model" on their matmul dim (torch stores a
+    linear weight as (out, in), so JAX's `P(None, "model")` is torch's dim
+    0); biases and norms stay replicated.  A rank holds whole heads and
+    its blocks of the GEGLU's two halves (`parallel/tensor_parallel.py`);
+  - FSDP (ZeRO-3 style): every leaf of at least `_FSDP_MIN_ELEMS` elements
+    is split over "data" along its largest evenly divisible dim (the other
+    dim of a tensor-parallel weight).  Each rank holds its shard of the
+    float32 master, the Adam moments and the EMA, and gathers the "data"
+    axis in the compute dtype before each micro-step
+    (`ShardLayout.gather_data`).  Gradients are mean-reduced over "data"
+    with `all_reduce` and each rank keeps its shard; gloo has no
+    `reduce_scatter`, and one path serves both backends.
 """
 
 from __future__ import annotations
 
 import math
 import os
+import re
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+
+from diffews_tpu_torch.parallel import tensor_parallel as tp
 
 BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
 
@@ -130,15 +146,18 @@ def _check_world(device_type: str, need: int, what: str):
 
 
 def make_mesh(device_type: str, n_data: Optional[int] = None, n_model: int = 1):
-    """The ("data",) mesh over the whole world (n_data None = every rank)."""
+    """The ("data", "model") mesh over the whole world (n_data None = the
+    world // n_model), or the ("data",) mesh at n_model 1."""
     from torch.distributed.device_mesh import init_device_mesh
 
-    if n_model > 1:
-        raise NotImplementedError("tensor parallelism (n_model > 1) is not ported "
-                                  "(ROADMAP A11b)")
-    n = world_size() if n_data is None else n_data
-    _check_world(device_type, n, f"a {n}-way data mesh")
-    return init_device_mesh(device_type, (n,), mesh_dim_names=("data",))
+    if n_model < 1:
+        raise ValueError(f"n_model must be >= 1, got {n_model}")
+    n = world_size() // n_model if n_data is None else n_data
+    if n_model == 1:
+        _check_world(device_type, n, f"a {n}-way data mesh")
+        return init_device_mesh(device_type, (n,), mesh_dim_names=("data",))
+    _check_world(device_type, n * n_model, f"a {n}x{n_model} data x model mesh")
+    return init_device_mesh(device_type, (n, n_model), mesh_dim_names=("data", "model"))
 
 
 def make_shot_mesh(device_type: str, n_shards: int, n_data: int = 1):
@@ -168,7 +187,8 @@ def axis_rank(mesh, name: str) -> int:
 
 
 def axis_group(mesh, name: str):
-    return mesh.get_group(name)
+    """The process group of axis `name`, None where the mesh lacks it."""
+    return mesh.get_group(name) if name in (mesh.mesh_dim_names or ()) else None
 
 
 def rows(n_rows: int, n_parts: int, part: int, what: str = "batch") -> slice:
@@ -223,8 +243,11 @@ class StopVote:
 
 def all_reduce_mean(tensors: Sequence[torch.Tensor], group) -> None:
     """Replace each tensor by its mean over `group`, in place: flat buffers
-    of at most `_BUCKET_ELEMS` elements, one SUM all_reduce each."""
+    of at most `_BUCKET_ELEMS` elements, one SUM all_reduce each (none for
+    a group of one)."""
     n = dist.get_world_size(group)
+    if n == 1:
+        return
     bucket: List[torch.Tensor] = []
 
     def flush():
@@ -249,15 +272,32 @@ def all_reduce_mean(tensors: Sequence[torch.Tensor], group) -> None:
 
 
 def all_gather_rows(x: torch.Tensor, group) -> torch.Tensor:
-    """The rows of every rank of `group`, in rank order, concatenated."""
-    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, x.contiguous(), group=group)
-    return torch.cat(parts, dim=0)
+    """The rows of every rank of `group` (each the same count), in rank
+    order, concatenated: an `all_reduce` of the zero-filled whole with this
+    rank's rows written in, which gloo also runs on CUDA tensors."""
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    rows_ = x.shape[0]
+    return tp.gather(x, 0, [(r * rows_, (r + 1) * rows_)], n * rows_, group)
 
 
 # ---------------------------------------------------------------------------
-# FSDP sharding rules
+# Sharding rules (JAX's `_TP_RULES`, `_fsdp_dim`, `param_pspec_tree`)
 # ---------------------------------------------------------------------------
+
+# Module-path regexes -> the "model" dim of the torch (out, in) weight.
+# Attention projections shard heads (out dim of q/k/v, in dim of out-proj);
+# the FFN shards its hidden dim; the CLIP text rules are JAX's too.  All
+# biases and norms stay replicated.
+_TP_RULES = [
+    (re.compile(r"attn\d?\.(to_q|to_k|to_v)$"), ("model", None)),
+    (re.compile(r"self_attn\.(q_proj|k_proj|v_proj)$"), ("model", None)),
+    (re.compile(r"attn\d?\.to_out\.0$"), (None, "model")),
+    (re.compile(r"self_attn\.out_proj$"), (None, "model")),
+    (re.compile(r"ff\.net\.0\.proj$"), ("model", None)),
+    (re.compile(r"ff\.net\.2$"), (None, "model")),
+    (re.compile(r"mlp\.fc1$"), ("model", None)),
+    (re.compile(r"mlp\.fc2$"), (None, "model")),
+]
 
 
 def _fsdp_dim(shape, n: Optional[int], avoid: Optional[int] = None,
@@ -283,49 +323,140 @@ def shape_pspec(shape, fsdp_size: Optional[int], min_elems: int = _FSDP_MIN_ELEM
     return tuple(spec)
 
 
-def param_pspec_tree(params: Dict[str, torch.Tensor], fsdp_size: Optional[int] = None,
+def _jax_order(name: str, ndim: int) -> Tuple[int, ...]:
+    """The torch dim of each of JAX's dims of the leaf: a conv kernel is
+    (kh, kw, in, out) in JAX and (out, in, kh, kw) here, a linear kernel
+    (in, out) and (out, in); embeddings, norms and biases keep their
+    order (`checkpoint.state_dict_from_jax`)."""
+    module = name.rpartition(".")[0]
+    if ndim == 4:
+        return (2, 3, 1, 0)
+    if ndim == 2 and name.endswith(".weight") and not module.endswith("embedding"):
+        return (1, 0)
+    return tuple(range(ndim))
+
+
+def param_pspec_tree(params: Dict[str, torch.Tensor], tensor_parallel: bool = False,
+                     fsdp_size: Optional[int] = None,
                      fsdp_min_elems: int = _FSDP_MIN_ELEMS) -> Dict[str, tuple]:
-    """The FSDP spec of each leaf of the port's flat name -> tensor dict
-    (JAX's tensor-parallel rules are not ported, ROADMAP A11b).
+    """The spec of each leaf of the port's flat name -> tensor dict: () when
+    replicated, else a tuple naming the axis of each torch dim.
 
-    The rule is JAX's, applied to the torch shapes.  Torch stores a linear
-    weight as (out, in) and a conv weight as (out, in, kh, kw) where JAX has
-    (in, out) and (kh, kw, in, out), so where two dims tie for the largest
-    (a square projection) the port splits the other logical dim than JAX
-    does.  No number depends on it: the step gathers the whole model and
-    checkpoints are written gathered."""
-    return {n: shape_pspec(tuple(t.shape), fsdp_size, fsdp_min_elems)
-            for n, t in params.items()}
+    JAX's rule: "model" on the matched matmul dim of a tensor-parallel
+    linear weight; with `fsdp_size`, "data" on the largest other evenly
+    divisible dim of every leaf of at least `fsdp_min_elems` elements.  The
+    dims are compared in JAX's order, so a tie between equal dims picks the
+    logical dim JAX picks, and each spec names the dims of JAX's."""
+    out = {}
+    for name, t in params.items():
+        shape = tuple(t.shape)
+        order = _jax_order(name, len(shape))
+        spec, tp_dim = [None] * len(shape), None
+        if tensor_parallel and len(shape) == 2 and order == (1, 0):
+            module = name.rpartition(".")[0]
+            for rx, rule in _TP_RULES:
+                if rx.search(module):
+                    spec, tp_dim = list(rule), rule.index("model")
+                    break
+        fd = _fsdp_dim(tuple(shape[d] for d in order), fsdp_size,
+                       avoid=None if tp_dim is None else order.index(tp_dim),
+                       min_elems=fsdp_min_elems)
+        if fd is not None:
+            spec[order[fd]] = "data"
+        out[name] = tuple(spec) if any(spec) else ()
+    return out
 
 
-class FsdpLayout:
-    """Where each leaf is split over a data group, and the collectives that
-    move between a leaf's shard and the whole leaf."""
+def tp_units(module) -> Dict[str, Tuple[int, bool]]:
+    """(unit, halves) of the model split of each tensor-parallel weight of
+    `module`'s tree: an attention module's projections split in whole
+    heads (unit = its `head_dim`), a GEGLU projection (`ff.net.0.proj`) in
+    its two halves; the rest in single rows (1, False)."""
+    units = {}
+    for prefix, m in module.named_modules():
+        pre = prefix + "." if prefix else ""
+        head_dim = getattr(m, "head_dim", None)
+        if head_dim:
+            for leaf in ("to_q", "to_k", "to_v", "to_out.0"):
+                units[f"{pre}{leaf}.weight"] = (head_dim, False)
+        if prefix.endswith("ff.net.0"):
+            units[f"{pre}proj.weight"] = (1, True)
+    return units
 
-    def __init__(self, specs: Dict[str, tuple], group):
-        self.specs, self.group = specs, group
-        self.n, self.rank = dist.get_world_size(group), dist.get_rank(group)
-        self.dims = {k: (s.index("data") if "data" in s else None) for k, s in specs.items()}
+
+class ShardLayout:
+    """Where each leaf is split over a mesh's "data" axis (FSDP) and "model"
+    axis (tensor parallelism), and the collectives that move between a
+    leaf's part and the whole leaf.
+
+    `dims[name]` is the leaf's "data" dim and `model_dims[name]` its "model"
+    dim (None = not split over that axis).  A "model" split gives each rank
+    its ranges of the dim (`tensor_parallel.part` / `halves`, in the units
+    of `units`); a "data" split even chunks of the dim after it."""
+
+    def __init__(self, specs: Dict[str, tuple], shapes: Dict[str, Tuple[int, ...]],
+                 data_group=None, model_group=None,
+                 units: Optional[Dict[str, Tuple[int, bool]]] = None):
+        self.specs, self.shapes, self.units = specs, shapes, units or {}
+        self.data_group, self.model_group = data_group, model_group
+        self.n, self.rank = _size_rank(data_group)
+        self.n_model, self.model_rank = _size_rank(model_group)
+        axis = lambda s, a: s.index(a) if a in s else None  # noqa: E731
+        self.dims = {k: axis(s, "data") for k, s in specs.items()}
+        self.model_dims = {k: axis(s, "model") for k, s in specs.items()}
 
     def sharded(self, name: str) -> bool:
         return self.dims[name] is not None
 
-    def shard(self, name: str, full: torch.Tensor) -> torch.Tensor:
-        """This rank's shard of the whole leaf `full` (a contiguous copy)."""
+    def model_sharded(self, name: str) -> bool:
+        return self.model_dims[name] is not None
+
+    def model_ranges(self, name: str) -> List[Tuple[int, int]]:
+        """This rank's ranges of the leaf's "model" dim."""
+        size = self.shapes[name][self.model_dims[name]]
+        unit, two = self.units.get(name, (1, False))
+        if two:
+            return tp.halves(size // 2, self.n_model, self.model_rank, unit)
+        return [tp.part(size, self.n_model, self.model_rank, unit)]
+
+    def shard_data(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's "data" chunk of `t` (a copy; `t` itself when the leaf
+        is not split over "data")."""
         d = self.dims[name]
         if d is None:
-            return full
-        return full.chunk(self.n, dim=d)[self.rank].contiguous()
+            return t
+        return t.chunk(self.n, dim=d)[self.rank].clone(memory_format=torch.contiguous_format)
 
-    def gather(self, name: str, part: torch.Tensor) -> torch.Tensor:
-        """The whole leaf from every rank's shard (a collective)."""
+    def shard(self, name: str, full: torch.Tensor) -> torch.Tensor:
+        """This rank's part of the whole leaf `full` (a contiguous copy;
+        `full` itself when the leaf is replicated)."""
+        md = self.model_dims[name]
+        if md is not None:
+            full = tp.take(full, md, self.model_ranges(name))
+            if self.dims[name] is None:
+                return full.clone(memory_format=torch.contiguous_format)
+        return self.shard_data(name, full)
+
+    def gather_data(self, name: str, part: torch.Tensor) -> torch.Tensor:
+        """The leaf's "model" part from every rank's "data" chunk (an
+        `all_gather` over "data")."""
         d = self.dims[name]
         if d is None:
             return part
         parts = [torch.empty_like(part, memory_format=torch.contiguous_format)
                  for _ in range(self.n)]
-        dist.all_gather(parts, part.contiguous(), group=self.group)
+        dist.all_gather(parts, part.contiguous(), group=self.data_group)
         return torch.cat(parts, dim=d)
+
+    def gather(self, name: str, part: torch.Tensor) -> torch.Tensor:
+        """The whole leaf from every rank's part (collectives every rank
+        joins, in the same order)."""
+        x = self.gather_data(name, part)
+        md = self.model_dims[name]
+        if md is None:
+            return x
+        return tp.gather(x, md, self.model_ranges(name), self.shapes[name][md],
+                         self.model_group)
 
     def shard_tree(self, tree: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         return {k: self.shard(k, v) for k, v in tree.items()}
@@ -334,22 +465,51 @@ class FsdpLayout:
         return {k: self.gather(k, v) for k, v in tree.items()}
 
 
-def init_state_fsdp(tcfg, unet_params: Dict[str, torch.Tensor], mesh, *, device=None,
-                    fsdp_min_elems: int = _FSDP_MIN_ELEMS):
-    """A `TrainState` born sharded over `mesh`'s "data" axis; returns
-    (state, layout).  Each rank slices its shard from the host copy of the
-    weights and moves only the shard to `device`: no rank allocates a
+def _size_rank(group) -> Tuple[int, int]:
+    return (1, 0) if group is None else (dist.get_world_size(group), dist.get_rank(group))
+
+
+def make_layout(params: Dict[str, torch.Tensor], mesh, *, tensor_parallel: bool = False,
+                fsdp: bool = False, units: Optional[Dict[str, Tuple[int, bool]]] = None,
+                fsdp_min_elems: int = _FSDP_MIN_ELEMS) -> ShardLayout:
+    """The layout of `params` over `mesh`: "model" splits under
+    `tensor_parallel` (the mesh needs a "model" axis), "data" splits under
+    `fsdp`."""
+    model_group = axis_group(mesh, "model")
+    if tensor_parallel and model_group is None:
+        raise ValueError('tensor parallelism needs a mesh with a "model" axis')
+    specs = param_pspec_tree(params, tensor_parallel,
+                             fsdp_size=axis_size(mesh, "data") if fsdp else None,
+                             fsdp_min_elems=fsdp_min_elems)
+    return ShardLayout(specs, {k: tuple(v.shape) for k, v in params.items()},
+                       axis_group(mesh, "data"), model_group if tensor_parallel else None,
+                       units)
+
+
+def shard_params(params: Dict[str, torch.Tensor], mesh, tensor_parallel: bool = False,
+                 fsdp: bool = False, units=None) -> Tuple[Dict[str, torch.Tensor], ShardLayout]:
+    """Each rank's parts of `params` under JAX's rules, and their layout."""
+    layout = make_layout(params, mesh, tensor_parallel=tensor_parallel, fsdp=fsdp,
+                         units=units)
+    return layout.shard_tree(params), layout
+
+
+def init_state_sharded(tcfg, unet_params: Dict[str, torch.Tensor], mesh, *,
+                       tensor_parallel: bool = False, fsdp: bool = True, units=None,
+                       device=None, fsdp_min_elems: int = _FSDP_MIN_ELEMS):
+    """A `TrainState` born sharded over `mesh`; returns (state, layout).
+    Each rank slices its part of each leaf from the host copy of the
+    weights and moves only the part to `device`: no rank allocates a
     full-size float32 master, first or second moment or EMA of a leaf the
-    rule shards (the eager `init_state` would build them all)."""
+    rules split (the eager `init_state` would build them all).  `units`:
+    `tp_units` of the UNet module, for tensor parallelism."""
     from diffews_tpu_torch.pipeline import resolve_device
     from diffews_tpu_torch.training import ema as ema_lib
     from diffews_tpu_torch.training import state as state_lib
 
     dev = resolve_device(device)
-    group = axis_group(mesh, "data")
-    specs = param_pspec_tree(unet_params, fsdp_size=axis_size(mesh, "data"),
-                             fsdp_min_elems=fsdp_min_elems)
-    layout = FsdpLayout(specs, group)
+    layout = make_layout(unet_params, mesh, tensor_parallel=tensor_parallel, fsdp=fsdp,
+                         units=units, fsdp_min_elems=fsdp_min_elems)
     fmt = torch.channels_last if dev.type == "cuda" else torch.contiguous_format
     params = {}
     for name, full in unet_params.items():
@@ -364,9 +524,19 @@ def init_state_fsdp(tcfg, unet_params: Dict[str, torch.Tensor], mesh, *, device=
     return state, layout
 
 
+def init_state_fsdp(tcfg, unet_params: Dict[str, torch.Tensor], mesh, *,
+                    tensor_parallel: bool = False, units=None, device=None,
+                    fsdp_min_elems: int = _FSDP_MIN_ELEMS):
+    """`init_state_sharded` with FSDP over "data" (JAX's `init_state_fsdp`;
+    with `tensor_parallel` the tensor-parallel weights carry "model" too)."""
+    return init_state_sharded(tcfg, unet_params, mesh, tensor_parallel=tensor_parallel,
+                              fsdp=True, units=units, device=device,
+                              fsdp_min_elems=fsdp_min_elems)
+
+
 def shard_host_tree(host_tree: Dict[str, torch.Tensor],
-                    layout: Optional[FsdpLayout]) -> Dict[str, torch.Tensor]:
-    """Each rank's shards of a whole host tree (FSDP resume: every rank
+                    layout: Optional[ShardLayout]) -> Dict[str, torch.Tensor]:
+    """Each rank's parts of a whole host tree (a sharded resume: every rank
     reads the same checkpoint and slices its part, as JAX's
     `put_sharded_host_tree`)."""
     return host_tree if layout is None else layout.shard_tree(host_tree)

@@ -30,10 +30,12 @@ Multi-device serving (JAX `pipeline.py:195-310,676-762`), one process per
 device under `torchrun`, every rank calling the same entry points with the
 same arguments:
 
-  - `mesh` (a ("data",) `DeviceMesh`, `parallel.mesh.make_mesh`): each rank
-    runs its contiguous rows of the episode batch, and `predict` returns the
-    whole batch on every rank, all-gathered over "data", as the JAX call
-    returns the global array.  `precompute_supports` builds a batch-1 cache
+  - `mesh` (a ("data",) or ("data", "model") `DeviceMesh`,
+    `parallel.mesh.make_mesh`): each rank runs its contiguous rows of the
+    episode batch (the same rows on every rank of a "model" axis, which the
+    pipeline replicates its weights over, as JAX's does), and `predict`
+    returns the whole batch on every rank, gathered over "data", as the JAX
+    call returns the global array.  `precompute_supports` builds a batch-1 cache
     on every rank (it serves any query batch) and a batch-B cache row for
     row with the query batch;
   - `shot_mesh` (("shots",) or ("data", "shots"), `make_shot_mesh`): each
@@ -42,9 +44,9 @@ same arguments:
     partial softmaxes over "shots"; a "data" axis shards the batch as
     above.  It does not compose with `mesh` or with the support cache.
 
-The gathers use `all_gather`, which gloo offers for CPU tensors only: a
-gloo mesh over CUDA tensors (two ranks on one card) serves `shot_mesh`
-without a "data" axis.
+The row gathers are `all_reduce`s of zero-filled wholes
+(`parallel.mesh.all_gather_rows`), which gloo also runs on CUDA tensors,
+so a gloo mesh serves every mesh with two ranks on one card.
 
 PyTorch runs eagerly and CUDA launches are asynchronous, so `predict_async`
 and `predict_cached_async` return as soon as the work is queued;
@@ -155,9 +157,9 @@ class DiffewsPipeline:
         >= 32 input channels W8A8 (`ops.quant`: static activation scales
         calibrated at init on a synthetic batch, the int8 conv kernels on
         the card; JAX `pipeline.py:179-194`).
-      mesh: optional ("data",) `DeviceMesh`: the episode batch splits over
-        its ranks and every rank gets the whole prediction.  A "model" axis
-        (tensor parallelism) raises (ROADMAP A11b).
+      mesh: optional ("data",) or ("data", "model") `DeviceMesh`: the
+        episode batch splits over "data" (replicated over "model") and every
+        rank gets the whole prediction.
       shot_mesh: optional ("shots",) or ("data", "shots") `DeviceMesh`: the
         support shots (and the batch, over "data") split over its ranks.
       unet_int8: W8A8 UNet self-attention, feed-forward and proj_in/out
@@ -173,10 +175,9 @@ class DiffewsPipeline:
                  unet_int8: bool = False, attn_mask_variant: bool = False):
         if vae_impl not in VAE_IMPLS:
             raise ValueError(f"unknown vae_impl {vae_impl!r} (expected one of {VAE_IMPLS})")
-        for m in (mesh, shot_mesh):
-            if m is not None and "model" in (m.mesh_dim_names or ()):
-                raise NotImplementedError(
-                    'a "model" mesh axis: tensor parallelism is not ported (ROADMAP A11b)')
+        if shot_mesh is not None and "model" in (shot_mesh.mesh_dim_names or ()):
+            raise ValueError('shot_mesh has a "shots" axis and an optional "data" axis, '
+                             'no "model" axis (parallel.mesh.make_shot_mesh)')
         if mesh is not None and shot_mesh is not None:
             raise ValueError(
                 "pass either mesh (episode data-parallel) or shot_mesh; to "

@@ -18,11 +18,13 @@ directory holding only that raises, naming the file.  The `unet/`
 directories are shared both ways.
 
 Multi-device runs (JAX `cli/train.py:555-580,674-694`): every rank calls
-`save_checkpoint` with `write` true on rank 0 alone.  Under FSDP (`layout`)
-the snapshot first gathers every sharded leaf (`host_fetch`, a collective
-all ranks join), so the files are those an unsharded run writes, bit for
-bit.  Resume reads the whole host copy on every rank and each rank keeps
-its shards (`load_checkpoint(..., layout=...)`).
+`save_checkpoint` with `write` true on rank 0 alone.  Under a sharded
+state (`layout`: FSDP over "data", tensor parallelism over "model", or
+both) the snapshot first gathers every split leaf over both axes
+(`host_fetch`, collectives all ranks join), so the files are those an
+unsharded run writes, bit for bit, in the unsharded diffusers layout.
+Resume reads the whole host copy on every rank and each rank keeps its
+parts (`load_checkpoint(..., layout=...)`).
 
 The training step updates parameters in place, so the synchronous
 snapshot copies every tensor to fresh host memory on every device (on the
@@ -61,8 +63,9 @@ def host_snapshot(tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 
 
 def host_fetch(tensors: Dict[str, torch.Tensor], layout=None) -> Dict[str, torch.Tensor]:
-    """A host copy of the whole leaves: under FSDP every sharded leaf is
-    gathered first (a collective: every rank calls it, in the same order)."""
+    """A host copy of the whole leaves: under a sharded layout every split
+    leaf is gathered first (collectives: every rank calls it, in the same
+    order)."""
     with torch.no_grad():
         return {n: _host_copy(t if layout is None else layout.gather(n, t))
                 for n, t in tensors.items()}
@@ -121,9 +124,9 @@ def save_checkpoint(output_dir: str, step: int, state: TrainState, unet_cfg: UNe
     exact resume.  `stats`, when given, receives `snapshot_s`, and once the
     write is done `write_s` and `bytes`.
 
-    Multi-device: every rank calls it; `layout` (FSDP) gathers the shards
-    first, and only the rank with `write` true snapshots the rest and
-    writes (the others return None)."""
+    Multi-device: every rank calls it; `layout` (a sharded state) gathers
+    the parts first, and only the rank with `write` true snapshots the rest
+    and writes (the others return None)."""
     wait_for_pending_saves()
     ckpt_dir = os.path.join(output_dir, f"checkpoint-{step}")
     tmp_dir = ckpt_dir + ".tmp"
@@ -239,8 +242,8 @@ def load_checkpoint(ckpt_dir: str, template: TrainState, lora: bool = False,
     state of the same structure) in place, bit for bit, and return it with
     the step.  With `lora=True` the trainable tensors are the adapters
     stored in `train_state.pt`; `unet/` holds the merged model and is not
-    read (the base weights come from the pretrained checkpoint).  Under
-    FSDP every rank reads the whole files and keeps its shards
+    read (the base weights come from the pretrained checkpoint).  Under a
+    sharded layout every rank reads the whole files and keeps its parts
     (`parallel.mesh.shard_host_tree`)."""
     from diffews_tpu_torch.parallel.mesh import shard_host_tree
 

@@ -29,11 +29,12 @@ product and the sum in f32, rounding only the stored result.  So the port
 computes `(1−b1)·g + b1_r·mu.float()` in f32 with `b1_r = b1` rounded to
 `mu_dtype`; an f32 moment is `(1−b1)·g + b1·mu` as written.
 
-Under FSDP (`layout`, a `parallel.mesh.FsdpLayout`) each rank updates its
-shards: the global norm is the SUM `all_reduce` of the sharded leaves'
-squares plus the replicated leaves' own (the same on every rank), and
-apply_if_finite's finite bit is a MAX `all_reduce` of each rank's
-non-finite flag, so every rank takes the same decision.
+Under FSDP or tensor parallelism (`layout`, a `parallel.mesh.ShardLayout`)
+each rank updates its parts: the global norm sums each leaf's squares over
+the axes it is split over (SUM `all_reduce`s over "data", then "model"),
+and counts a replicated leaf once (its gradient is the same on every
+rank); apply_if_finite's finite bit is a MAX `all_reduce` of each rank's
+non-finite flag over both axes, so every rank takes the same decision.
 
 Everything stays on the device (no host read), so a window of steps runs
 without synchronising.  `update` changes the parameters and the state in
@@ -102,7 +103,8 @@ def make_optimizer(schedule: Schedule, *, b1: float = 0.9, b2: float = 0.999,
         finite = torch.stack([torch.isfinite(g).all() for g in gs]).all()
         if layout is not None:
             bad = (~finite).to(torch.int32)
-            dist.all_reduce(bad, op=dist.ReduceOp.MAX, group=layout.group)
+            for group in _groups(layout):
+                dist.all_reduce(bad, op=dist.ReduceOp.MAX, group=group)
             finite = bad == 0
         if max_nonfinite_steps > 0:
             notfinite = torch.where(finite, torch.zeros_like(state.notfinite_count),
@@ -137,10 +139,32 @@ def make_optimizer(schedule: Schedule, *, b1: float = 0.9, b2: float = 0.999,
     return Optimizer(init, update)
 
 
+def _spans(group) -> bool:
+    """`group` holds more than one rank (a collective over it does work)."""
+    return group is not None and dist.get_world_size(group) > 1
+
+
+def _groups(layout):
+    """The layout's process groups of more than one rank."""
+    return [g for g in (layout.data_group, layout.model_group) if _spans(g)]
+
+
 def _sharded_norm(names, gs, layout) -> torch.Tensor:
-    """The global norm of gradients of which `layout` shards some leaves."""
-    sq = lambda ts: (torch.stack([t.float().square().sum() for t in ts]).sum()  # noqa: E731
-                     if ts else torch.zeros((), dtype=torch.float32, device=gs[0].device))
-    sharded = sq([g for n, g in zip(names, gs) if layout.sharded(n)])
-    dist.all_reduce(sharded, op=dist.ReduceOp.SUM, group=layout.group)
-    return (sharded + sq([g for n, g in zip(names, gs) if not layout.sharded(n)])).sqrt()
+    """The global norm of gradients of which `layout` splits some leaves:
+    the squares of the leaves split over "data" (and over both axes) summed
+    over "data", then those split over "model" (and both) over "model"."""
+    sq = [[], [], [], []]  # replicated, "data", "model", both
+    for n, g in zip(names, gs):
+        sq[int(layout.sharded(n)) + 2 * int(layout.model_sharded(n))].append(
+            g.float().square().sum())
+    zero = torch.zeros((), dtype=torch.float32, device=gs[0].device)
+    parts = torch.stack([torch.stack(x).sum() if x else zero for x in sq])
+    if _spans(layout.data_group):
+        over_data = parts[1::2].clone()  # data, both
+        dist.all_reduce(over_data, op=dist.ReduceOp.SUM, group=layout.data_group)
+        parts = torch.stack([parts[0], over_data[0], parts[2], over_data[1]])
+    if _spans(layout.model_group):
+        over_model = parts[2:].clone()  # model, both
+        dist.all_reduce(over_model, op=dist.ReduceOp.SUM, group=layout.model_group)
+        parts = torch.cat([parts[:2], over_model])
+    return parts.sum().sqrt()

@@ -30,11 +30,21 @@ than the JAX package does.
 Data parallelism (`data_group`): each rank runs its rows of the global
 batch, and its micro-steps' averaged gradients and loss are mean-reduced
 over the group before the optimizer (one bucketed SUM `all_reduce`), as
-JAX's global mean over a batch sharded on "data".  FSDP (`layout`, born
-sharded by `parallel.mesh.init_state_fsdp`): the state holds this rank's
-shards; before each micro-step the whole model is all-gathered in the
-compute dtype (the whole model at once; a gather per layer is later
-work), the gradients are mean-reduced and each rank keeps its shards.
+JAX's global mean over a batch sharded on "data".  A sharded state
+(`layout`, born sharded by `parallel.mesh.init_state_sharded`): the state
+holds this rank's parts.  Under FSDP, before each micro-step the "data"
+axis of the model is all-gathered in the compute dtype (the whole model at
+once; a gather per layer is later work); the gradients are mean-reduced
+over "data" and each rank keeps its shards.  Under tensor parallelism the
+UNet runs its attention and feed-forward matmuls on this rank's parts of
+the weights with the collectives of `parallel/tensor_parallel.py`
+(`model_group`), and each rank's gradients are those of its parts.  The
+replicated leaves are computed alike on every rank of the "model" axis
+and stay equal only where the device's kernels are deterministic: on the
+card that takes cuDNN's deterministic algorithms
+(`torch.backends.cudnn.deterministic`, which the train CLI sets), else
+the ranks' replicated gradients differ by float noise and the replicas
+drift apart.
 
 The step changes the state in place (parameters, optimizer moments, EMA)
 and returns it with its metrics as device tensors, so a window of steps
@@ -170,12 +180,13 @@ def training_text_embed(text: nn.Module, text_cfg: CLIPTextConfig) -> torch.Tens
         return text(clip_text.empty_prompt_ids(text_cfg, pad_to=77, device=device))
 
 
-def make_episode_loss(cfg: TrainerConfig, unet: nn.Module):
+def make_episode_loss(cfg: TrainerConfig, unet: nn.Module, model_group=None):
     """Returns `loss(vae, text_embed, micro, noise)`: the reference's
     in-context regression objective on one micro-batch, run with the
     weights bound to `unet` (its own, or compute-dtype casts under
-    `bind_params`).  `vae` is the frozen VAE in the compute dtype; `noise`
-    is a `torch.Generator` for the posterior sample or its standard-normal
+    `bind_params`; this rank's tensor-parallel parts over `model_group`).
+    `vae` is the frozen VAE in the compute dtype; `noise` is a
+    `torch.Generator` for the posterior sample or its standard-normal
     draws; `micro`'s fields are those of `make_train_step` without the gas
     axis."""
     dt = cfg.compute_dtype
@@ -218,7 +229,7 @@ def make_episode_loss(cfg: TrainerConfig, unet: nn.Module):
         ctx = text_embed.expand((b,) + tuple(text_embed.shape[1:])).to(dt)
         pred = unet(q_lat, cfg.train_timestep, ctx, ref_sample=ref,
                     shot_mask=micro["shot_mask"], ref_mask=ref_mask,
-                    attn_impl=cfg.attn_impl, remat=cfg.remat)
+                    attn_impl=cfg.attn_impl, remat=cfg.remat, model_group=model_group)
         return (pred.float() - (-qm_lat).float()).square().mean()
 
     return loss
@@ -247,13 +258,14 @@ def make_grad_fn(cfg: TrainerConfig, unet: nn.Module) -> GradFn:
     return grad_fn
 
 
-def make_fsdp_grad_fn(cfg: TrainerConfig, unet: nn.Module, layout) -> GradFn:
-    """`make_grad_fn` over FSDP shards: `grad_fn(shards, ...)` gathers the
-    whole model in the compute dtype (channels-last conv weights on the
-    card), binds it to `unet`, and returns the loss and the float32
-    gradients of the whole leaves (the gradient of a cast is the cast's
+def make_sharded_grad_fn(cfg: TrainerConfig, unet: nn.Module, layout) -> GradFn:
+    """`make_grad_fn` over a sharded state: `grad_fn(parts, ...)` gathers
+    the "data" axis of the model (FSDP) in the compute dtype (channels-last
+    conv weights on the card), binds this rank's tensor-parallel parts and
+    the whole other leaves to `unet`, and returns the loss and the float32
+    gradients of what it bound (the gradient of a cast is the cast's
     gradient, as in JAX)."""
-    episode_loss = make_episode_loss(cfg, unet)
+    episode_loss = make_episode_loss(cfg, unet, model_group=layout.model_group)
     dt = cfg.compute_dtype
 
     def grad_fn(shards, vae, text_embed, micro, noise):
@@ -261,7 +273,7 @@ def make_fsdp_grad_fn(cfg: TrainerConfig, unet: nn.Module, layout) -> GradFn:
         full = {}
         with torch.no_grad():
             for n in names:
-                t = layout.gather(n, shards[n].detach().to(dt))
+                t = layout.gather_data(n, shards[n].detach().to(dt))
                 if t.ndim == 4 and t.is_cuda:
                     t = t.contiguous(memory_format=torch.channels_last)
                 full[n] = t.requires_grad_(True)
@@ -314,12 +326,12 @@ def make_train_step(cfg: TrainerConfig, unet: nn.Module, *, data_group=None, lay
     apply_if_finite's notfinite_count and total_notfinite.
 
     `data_group`: the process group of the "data" axis (the batch holds
-    this rank's rows; `rng` draws this rank's images); `layout`: the FSDP
-    layout of a state from `parallel.mesh.init_state_fsdp` (its group is
-    the data group)."""
+    this rank's rows; `rng` draws this rank's images); `layout`: the layout
+    of a state from `parallel.mesh.init_state_sharded` (its data group is
+    the "data" axis's)."""
     if layout is not None:
-        return step_from_grad_fn(cfg, make_fsdp_grad_fn(cfg, unet, layout),
-                                 data_group=layout.group, layout=layout)
+        return step_from_grad_fn(cfg, make_sharded_grad_fn(cfg, unet, layout),
+                                 data_group=layout.data_group, layout=layout)
     return step_from_grad_fn(cfg, make_grad_fn(cfg, unet), data_group=data_group)
 
 
@@ -327,7 +339,8 @@ def step_from_grad_fn(cfg: TrainerConfig, grad_fn: GradFn, *, data_group=None, l
     """`step_fn(state, batch, rng, *extra) -> (state, metrics)` around
     `grad_fn(state.params, *extra, micro, noise)`: the gradients averaged
     over the micro-batches (and over `data_group`; then cut to this rank's
-    shards under `layout`), the optimizer update, EMA and step count."""
+    "data" shards under `layout`), the optimizer update, EMA and step
+    count."""
     tx = make_optimizer(cfg, layout=layout)
 
     def step_fn(state: TrainState, batch, rng, *extra) -> Tuple[TrainState, dict]:
@@ -338,7 +351,7 @@ def step_from_grad_fn(cfg: TrainerConfig, grad_fn: GradFn, *, data_group=None, l
             loss = loss.clone()
             mesh_lib.all_reduce_mean([loss] + list(grads.values()), data_group)
         if layout is not None:
-            grads = layout.shard_tree(grads)
+            grads = {n: layout.shard_data(n, g) for n, g in grads.items()}
         gnorm = tx.update(grads, state.opt_state, state.params)
         del grads
         if state.ema is not None:

@@ -29,7 +29,7 @@ def _port_sources():
              + [ROOT / "examples" / "torch" / "serve_client.py"]
              + sorted((ROOT / "tests" / "helpers").glob("*_ranks.py")))
     assert len(files) > 10
-    for rel in ("parallel/mesh.py", "cli/launcher.py", "cli/measure_baseline.py",
+    for rel in ("parallel/mesh.py", "parallel/tensor_parallel.py", "cli/launcher.py", "cli/measure_baseline.py",
                 "cli/verify_parity.py", "cli/prepare.py", "utils/image.py"):
         assert ROOT / "diffews_tpu_torch" / rel in files
     return files
@@ -66,7 +66,7 @@ def test_importing_the_port_loads_no_jax():
             "import diffews_tpu_torch.cli.export\n"
             "import diffews_tpu_torch.training.lora, diffews_tpu_torch.training.checkpoints\n"
             "import diffews_tpu_torch.cli.train, diffews_tpu_torch.cli.surgery\n"
-            "import diffews_tpu_torch.parallel.mesh\n"
+            "import diffews_tpu_torch.parallel.mesh, diffews_tpu_torch.parallel.tensor_parallel\n"
             "import diffews_tpu_torch.cli.launcher, diffews_tpu_torch.cli.measure_baseline\n"
             "import diffews_tpu_torch.cli.verify_parity, diffews_tpu_torch.cli.prepare\n"
             "import diffews_tpu_torch.data.tokenizer, diffews_tpu_torch.scheduler\n"

@@ -159,16 +159,29 @@ def test_mask_on_device_path(pipes):
 
 
 class _TensorParallelMesh:
-    """A mesh with JAX's ("data", "model") axes: tensor parallelism."""
+    """A 2 x 2 mesh with JAX's ("data", "model") axes, seen from the rank at
+    (1, 0)."""
     mesh_dim_names = ("data", "model")
+
+    def size(self, dim):
+        return 2
+
+    def get_local_rank(self, name):
+        return {"data": 1, "model": 0}[name]
+
+    def get_group(self, name):
+        return f"{name} group"
 
 
 @pytest.mark.parametrize("kw", [{"vae_impl": "int8"}, {"unet_int8": True},
                                 {"mesh": _TensorParallelMesh()},
                                 {"shot_mesh": _TensorParallelMesh()}])
 def test_unported_options_raise(bundles, kw):
-    """A "model" mesh axis (A11b) raises; the data and shot meshes are held
-    in `test_torch_parallel.py` and `test_torch_shot_parallel.py`.  The
+    """A ("data", "model") `mesh` is taken as JAX's pipeline takes it: the
+    rows split over "data" and replicated over "model" (held on ranks in
+    `test_torch_tensor_parallel.py`); a `shot_mesh` with a "model" axis
+    raises.  The data and shot meshes are held in `test_torch_parallel.py`
+    and `test_torch_shot_parallel.py`.  The
     int8 options (A12, ported) run against the JAX pipeline with the same
     flag: the int8 codes equal JAX's but at ties and, with JAX's codes fed
     forward past each tie, the segs meet the episode contract
@@ -177,8 +190,13 @@ def test_unported_options_raise(bundles, kw):
     if "vae_impl" not in kw and "unet_int8" not in kw:
         b = TC.random_pipeline_bundle(TCF.UNetConfig.tiny(), TCF.VAEConfig.tiny(), None,
                                       TCF.SchedulerConfig.diffews())
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TP.DiffewsPipeline(b, device="cpu", **kw)
+        if "shot_mesh" in kw:
+            with pytest.raises(ValueError, match='no "model" axis'):
+                TP.DiffewsPipeline(b, device="cpu", **kw)
+            return
+        p = TP.DiffewsPipeline(b, device="cpu", **kw)
+        assert (p._n_data, p._data_rank, p._data_group) == (2, 1, "data group")
+        assert p._shot_group is None and p._n_shots == 1
         return
     jb, port = bundles
     with int8_parity() as ties:

@@ -13,8 +13,8 @@ evicted cache is in flight), micro-batch coalescing and error surfacing,
 stats, depth 1 without deadlock, raw against PNG ingestion and responses,
 the body limit, buckets against full padding and their range check,
 `warm_start`, artifact mode (one-off answers equal the artifact's output
-and the port pipeline's, bit for bit), the multi-device (A11) flags
-raising, the int8 (A12) flags against the JAX daemon's past quantizer ties,
+and the port pipeline's, bit for bit), the multi-device (A11) flags'
+checks outside a launch, the int8 (A12) flags against the JAX daemon's past quantizer ties,
 a host without a card raising, and SIGTERM's drain of a real
 `python -m diffews_tpu_torch.cli.serve --device cpu` process.
 """
@@ -655,7 +655,11 @@ def test_artifact_mode(pipe):
     (["--num_data_shards", "2"], "A11"), (["--num_shot_shards", "2"], "A11"),
     (["--vae_impl", "int8"], "A12"), (["--unet_int8"], "A12")])
 def test_unported_flags_raise_before_loading(flags, item, tmp_path_factory):
-    """The multi-device flags (A11b) raise before anything is loaded.  The
+    """The multi-device flags (A11, ported) raise before anything is loaded:
+    with a batch or shot count the shards do not divide, as JAX's
+    `test_make_server_mesh_flag_validation` (SystemExit), and outside a
+    `torchrun` launch, saying how to launch them
+    (`test_torch_serve_sharded.py` serves under one).  The
     int8 flags (A12, ported) build a daemon from a JAX-saved checkpoint and
     answer as the JAX daemon with the same flags does: `--vae_impl int8` a
     one-off episode, `--unet_int8` supports.add and a cached request; the
@@ -663,10 +667,15 @@ def test_unported_flags_raise_before_loading(flags, item, tmp_path_factory):
     past each tie (`helpers/int8_ties.py`), the responses meet the episode
     contract (both calibrate at 64 px)."""
     if item == "A11":
-        args = serve.build_parser().parse_args(["--checkpoint", "/nonexistent", "--device",
-                                                "cpu", *flags])
-        with pytest.raises(NotImplementedError, match=item):
-            serve.make_server(args)
+        argv = ["--checkpoint", "/nonexistent", "--device", "cpu", *flags]
+        undivided = ["--bsz", "3"] if flags[0] == "--num_data_shards" else ["--nshot", "3"]
+        for mod in (serve, JS):
+            with pytest.raises(SystemExit, match="must be divisible"):
+                mod.make_server(mod.build_parser().parse_args(
+                    [a for a in argv if a not in ("--device", "cpu")] + undivided
+                    if mod is JS else argv + undivided))
+        with pytest.raises(RuntimeError, match="torchrun --nproc_per_node 2"):
+            serve.make_server(serve.build_parser().parse_args(argv + ["--nshot", "2"]))
         return
     ck = tmp_path_factory.getbasetemp() / "int8_ckpt"
     if not ck.exists():

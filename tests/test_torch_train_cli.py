@@ -14,7 +14,8 @@ mid-run checkpoint in a fresh directory, the foreign-resume final save, the
 preemption save plus a bitwise `latest` resume, the signal handler's set
 and restore, the `--metrics_jsonl` records, the validation strip and
 `eval_results.txt`, the profiler trace.  The multi-device flags outside
-`torchrun`, tensor parallelism and a JAX msgpack train state raise.  Two
+`torchrun` (tensor parallelism's included) and a JAX msgpack train state
+raise.  Two
 JAX CLI runs for the whole file (float32 and bf16 first moments).
 """
 
@@ -304,15 +305,13 @@ def test_metrics_validation_and_profile_outputs(port_run):
 @pytest.mark.parametrize("flag", [["--fsdp"], ["--multihost"], ["--num_data_shards", "2"],
                                   ["--num_model_shards", "2"]])
 def test_multi_device_flags_raise(workdir, tmp_path, flag):
-    """Tensor parallelism is not ported (A11b); the data-parallel and FSDP
-    flags outside a `torchrun` launch raise, saying how to launch them
-    (`test_torch_parallel_cli.py` runs them under one)."""
-    if flag[0] == "--num_model_shards":
-        with pytest.raises(NotImplementedError, match="A11b"):
-            TT.main(_common(workdir, tmp_path / "x", "--device", "cpu", *flag))
-    else:
-        with pytest.raises(RuntimeError, match="torchrun"):
-            TT.main(_common(workdir, tmp_path / "x", "--device", "cpu", *flag))
+    """The data-parallel, FSDP and tensor-parallel flags outside a
+    `torchrun` launch raise, saying how to launch them
+    (`test_torch_parallel_train_cli.py` and `test_torch_tensor_parallel.py`
+    run them under one)."""
+    with pytest.raises(RuntimeError, match="torchrun --nproc_per_node 2"
+                       if flag[-1] == "2" else "torchrun"):
+        TT.main(_common(workdir, tmp_path / "x", "--device", "cpu", *flag))
 
 
 @pytest.mark.parametrize("raises", [False, True])
