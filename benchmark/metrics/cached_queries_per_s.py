@@ -1,0 +1,7 @@
+"""Queries answered against the support cache inside the window, over the window."""
+
+from benchmark import readers
+
+
+def read(run):
+    return readers.items_per_s(run)
