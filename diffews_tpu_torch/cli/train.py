@@ -39,7 +39,8 @@ differs:
     (`training/checkpoints.py`), not flax msgpack;
   - each step's posterior-sample noise is drawn from a CPU generator keyed
     by (seed, step) (`step_noise`), so the stream is the same on every
-    device; `--profile_step` writes a `torch.profiler` trace;
+    device; `--profile_step` writes a `torch.profiler` trace with the
+    port's spans on (`utils/profiling.py`);
   - on a CUDA device the CLI sets `torch.backends.cudnn.deterministic`
     while it runs, and puts the process's setting back when `main`
     returns: cuDNN's default algorithms may sum a convolution's gradient in
@@ -59,6 +60,7 @@ Usage (mirrors `scripts/train_coco_*.sh`):
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import itertools
 import json
@@ -80,7 +82,7 @@ from diffews_tpu_torch.training import checkpoints as tck
 from diffews_tpu_torch.training import lora as lora_lib
 from diffews_tpu_torch.training.state import (TrainerConfig, init_state, make_train_step,
                                               training_text_embed)
-from diffews_tpu_torch.utils import to_device
+from diffews_tpu_torch.utils import profiling, to_device
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -169,8 +171,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "total_notfinite} at every logging interval "
                         "(appends across resumes)")
     p.add_argument("--profile_step", type=int, default=0,
-                   help="capture a torch.profiler trace starting at this "
-                        "optimizer step (0 = off) into {output_dir}/profile")
+                   help="capture a torch.profiler trace, with the port's spans, "
+                        "starting at this optimizer step (0 = off) into "
+                        "{output_dir}/profile")
     p.add_argument("--profile_num_steps", type=int, default=3,
                    help="steps to include in the --profile_step trace")
     # periodic validation (log_validation + eval_results.txt,
@@ -623,6 +626,7 @@ def _train(args, device) -> dict:
     t0 = time.time()
     last_logged_step, last_logged_t = global_step, t0
     profiler = None
+    profiled = contextlib.ExitStack()  # the port's spans, on while the profiler runs
     preempted = False
     # a resumed step already has its checkpoint on disk, but only counts as
     # saved when it lives in this output_dir (resuming a foreign checkpoint
@@ -640,6 +644,7 @@ def _train(args, device) -> dict:
             if on_card:
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
             profiler = torch.profiler.profile(activities=acts)
+            profiled.enter_context(profiling.spans_on())
             profiler.start()
         micro = []
         for j in range(args.gradient_accumulation_steps):
@@ -669,6 +674,7 @@ def _train(args, device) -> dict:
                 global_step >= args.profile_step + args.profile_num_steps - 1:
             float(metrics["loss"])  # the steps' end on the device
             profiler.stop()
+            profiled.close()
             prof_dir = os.path.join(args.output_dir, "profile")
             os.makedirs(prof_dir, exist_ok=True)
             profiler.export_chrome_trace(os.path.join(
@@ -726,6 +732,7 @@ def _train(args, device) -> dict:
     restore_signals()
     if profiler is not None:  # the loop ended inside the profiled window
         profiler.stop()
+        profiled.close()
     tck.wait_for_pending_saves()
     if global_step != last_saved_step:
         # skip the final save when the cadence already wrote this step; the

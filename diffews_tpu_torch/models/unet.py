@@ -69,6 +69,7 @@ from diffews_tpu_torch.ops.attention import (cross_attention, fused_kv_attention
                                              merge_heads, shot_parallel_fused_kv_attention)
 from diffews_tpu_torch.ops.resize import nearest_resize
 from diffews_tpu_torch.parallel import tensor_parallel as tp
+from diffews_tpu_torch.utils.profiling import annotate
 
 ATTN_EPS = 1e-6  # Transformer2D GroupNorm epsilon
 
@@ -222,20 +223,29 @@ class MidBlock(nn.Module):
         self.attentions = nn.ModuleList([Transformer2DModel(c, heads, cfg)])
 
 
+def _resnet(res, h, emb):
+    with annotate("diffews.unet.resnet"):
+        return res(h, emb)
+
+
+def _transformer(attn, h, ctx, st):
+    if attn is None:
+        return h
+    with annotate("diffews.unet.transformer"):
+        return attn(h, ctx, st)
+
+
 def _down_layer(h, emb, ctx, res, attn, st):
-    h = res(h, emb)
-    return h if attn is None else attn(h, ctx, st)
+    return _transformer(attn, _resnet(res, h, emb), ctx, st)
 
 
 def _mid(h, emb, ctx, mid, st):
-    h = mid.resnets[0](h, emb)
-    h = mid.attentions[0](h, ctx, st)
-    return mid.resnets[1](h, emb)
+    h = _transformer(mid.attentions[0], _resnet(mid.resnets[0], h, emb), ctx, st)
+    return _resnet(mid.resnets[1], h, emb)
 
 
 def _up_layer(h, skip, emb, ctx, res, attn, st):
-    h = res(torch.cat([h, skip], dim=-1), emb)
-    return h if attn is None else attn(h, ctx, st)
+    return _transformer(attn, _resnet(res, torch.cat([h, skip], dim=-1), emb), ctx, st)
 
 
 class UNet2DConditionModel(nn.Module):
@@ -284,6 +294,9 @@ class UNet2DConditionModel(nn.Module):
         self.up_blocks = nn.ModuleList(up)
         self.conv_norm_out = GroupNorm(g, chans[0], eps)
         self.conv_out = Conv2d(chans[0], cfg.out_channels, k_out, padding=k_out // 2)
+        # each block's span name, built once
+        self._down_spans = tuple(f"diffews.unet.down{i}" for i in range(n))
+        self._up_spans = tuple(f"diffews.unet.up{i}" for i in range(n))
 
     def forward(
         self,
@@ -410,25 +423,28 @@ class UNet2DConditionModel(nn.Module):
         # --- down path ---
         down_states = [h]
         for i, blk in enumerate(self.down_blocks):
-            for j, res in enumerate(blk.resnets):
-                attn = blk.attentions[j] if len(blk.attentions) else None
-                h = layer(_down_layer, h, emb, ctx, res, attn, streams(i))
-                down_states.append(h)
-            if hasattr(blk, "downsamplers"):
-                h = blk.downsamplers[0](h)
-                down_states.append(h)
+            with annotate(self._down_spans[i]):
+                for j, res in enumerate(blk.resnets):
+                    attn = blk.attentions[j] if len(blk.attentions) else None
+                    h = layer(_down_layer, h, emb, ctx, res, attn, streams(i))
+                    down_states.append(h)
+                if hasattr(blk, "downsamplers"):
+                    h = blk.downsamplers[0](h)
+                    down_states.append(h)
 
         # --- mid ---
-        h = layer(_mid, h, emb, ctx, self.mid_block, streams(n - 1))
+        with annotate("diffews.unet.mid"):
+            h = layer(_mid, h, emb, ctx, self.mid_block, streams(n - 1))
 
         # --- up path ---
         for i, blk in enumerate(self.up_blocks):
-            for j, res in enumerate(blk.resnets):
-                attn = blk.attentions[j] if len(blk.attentions) else None
-                h = layer(_up_layer, h, down_states.pop(), emb, ctx, res, attn,
-                          streams(n - 1 - i))
-            if hasattr(blk, "upsamplers"):
-                h = blk.upsamplers[0](h)
+            with annotate(self._up_spans[i]):
+                for j, res in enumerate(blk.resnets):
+                    attn = blk.attentions[j] if len(blk.attentions) else None
+                    h = layer(_up_layer, h, down_states.pop(), emb, ctx, res, attn,
+                              streams(n - 1 - i))
+                if hasattr(blk, "upsamplers"):
+                    h = blk.upsamplers[0](h)
 
         if kv_iter is not None and next(kv_iter, None) is not None:
             raise ValueError("kv_cache has more entries than this config's "

@@ -33,6 +33,7 @@ from diffews_tpu_torch.models.layers import (Conv2d, Downsample2D, GroupNorm,
                                              ResnetBlock2D, Upsample2D)
 from diffews_tpu_torch.ops.attention import fused_kv_attention
 from diffews_tpu_torch.ops.fused_resnet import fused_norm_conv_out, fused_resnet_block
+from diffews_tpu_torch.utils.profiling import annotate
 
 EPS = 1e-6  # VAE GroupNorm epsilon (diffusers AutoencoderKL default)
 RESNET_IMPLS = ("auto", "xla", "fused", "mixed", "pallas")
@@ -54,10 +55,11 @@ def _resnet(block: ResnetBlock2D, h: torch.Tensor, st, impl: str):
     if impl == "mixed":
         impl = "fused" if h.shape[1] * h.shape[2] >= MIXED_MIN_PIXELS else "xla"
         st = st if impl == "fused" else None
-    if impl in ("fused", "pallas"):
-        return fused_resnet_block(block, h, st, groups=block.norm1.groups, eps=EPS,
-                                  impl="auto" if impl == "fused" else "pallas")
-    return block(h), None
+    with annotate("diffews.vae.resnet"):
+        if impl in ("fused", "pallas"):
+            return fused_resnet_block(block, h, st, groups=block.norm1.groups, eps=EPS,
+                                      impl="auto" if impl == "fused" else "pallas")
+        return block(h), None
 
 
 def _head(norm: GroupNorm, conv: Conv2d, h: torch.Tensor, st, fused: bool,
@@ -83,12 +85,13 @@ class VAEAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, attn_impl: str) -> torch.Tensor:
         b, h, w, c = x.shape
-        y = self.group_norm(x).reshape(b, h * w, c)
-        q = self.to_q(y)[:, :, None, :]  # 1 head
-        k = self.to_k(y)[:, :, None, :]
-        v = self.to_v(y)[:, :, None, :]
-        o = fused_kv_attention(q, k, v, None, None, impl=attn_impl)[:, :, 0, :]
-        return self.to_out[0](o).reshape(b, h, w, c) + x
+        with annotate("diffews.vae.attention"):
+            y = self.group_norm(x).reshape(b, h * w, c)
+            q = self.to_q(y)[:, :, None, :]  # 1 head
+            k = self.to_k(y)[:, :, None, :]
+            v = self.to_v(y)[:, :, None, :]
+            o = fused_kv_attention(q, k, v, None, None, impl=attn_impl)[:, :, 0, :]
+            return self.to_out[0](o).reshape(b, h, w, c) + x
 
 
 class MidBlock(nn.Module):
@@ -132,17 +135,21 @@ class Encoder(nn.Module):
         self.mid_block = MidBlock(chans[-1], g)
         self.conv_norm_out = GroupNorm(g, chans[-1], EPS)
         self.conv_out = Conv2d(chans[-1], 2 * cfg.latent_channels, 3, padding=1)
+        self._down_spans = tuple(f"diffews.vae.encoder.down{i}" for i in range(n))
 
     def forward(self, x: torch.Tensor, attn_impl: str, impl: str = "xla") -> torch.Tensor:
         h, st = self.conv_in(x), None
-        for blk in self.down_blocks:
-            for r in blk.resnets:
-                h, st = _resnet(r, h, st, impl)
-            if hasattr(blk, "downsamplers"):
-                h, st = blk.downsamplers[0](h), None
-        h, st = self.mid_block(h, st, attn_impl, impl)
-        return _head(self.conv_norm_out, self.conv_out, h, st, impl in ("fused", "pallas"),
-                     impl)
+        for i, blk in enumerate(self.down_blocks):
+            with annotate(self._down_spans[i]):
+                for r in blk.resnets:
+                    h, st = _resnet(r, h, st, impl)
+                if hasattr(blk, "downsamplers"):
+                    h, st = blk.downsamplers[0](h), None
+        with annotate("diffews.vae.encoder.mid"):
+            h, st = self.mid_block(h, st, attn_impl, impl)
+        with annotate("diffews.vae.encoder.head"):
+            return _head(self.conv_norm_out, self.conv_out, h, st, impl in ("fused", "pallas"),
+                         impl)
 
 
 class Decoder(nn.Module):
@@ -163,19 +170,24 @@ class Decoder(nn.Module):
         self.up_blocks = nn.ModuleList(blocks)
         self.conv_norm_out = GroupNorm(g, rev[-1], EPS)
         self.conv_out = Conv2d(rev[-1], cfg.out_channels, 3, padding=1)
+        self._up_spans = tuple(f"diffews.vae.decoder.up{i}" for i in range(n))
 
     def forward(self, z: torch.Tensor, attn_impl: str, impl: str = "xla") -> torch.Tensor:
-        h, st = self.mid_block(self.conv_in(z), None, attn_impl, impl)
-        for blk in self.up_blocks:
-            for r in blk.resnets:
-                h, st = _resnet(r, h, st, impl)
-            if hasattr(blk, "upsamplers"):
-                h, st = blk.upsamplers[0](h), None
+        h = self.conv_in(z)
+        with annotate("diffews.vae.decoder.mid"):
+            h, st = self.mid_block(h, None, attn_impl, impl)
+        for i, blk in enumerate(self.up_blocks):
+            with annotate(self._up_spans[i]):
+                for r in blk.resnets:
+                    h, st = _resnet(r, h, st, impl)
+                if hasattr(blk, "upsamplers"):
+                    h, st = blk.upsamplers[0](h), None
         # "mixed" ends at full resolution, where its fused blocks ran, so the
         # head belongs to the fused chain there too
         fused = impl in ("fused", "pallas") or (
             impl == "mixed" and h.shape[1] * h.shape[2] >= MIXED_MIN_PIXELS)
-        return _head(self.conv_norm_out, self.conv_out, h, st, fused, impl)
+        with annotate("diffews.vae.decoder.head"):
+            return _head(self.conv_norm_out, self.conv_out, h, st, fused, impl)
 
 
 class AutoencoderKL(nn.Module):

@@ -73,6 +73,7 @@ from diffews_tpu_torch.ops.resize import bilinear_resize, nearest_resize
 from diffews_tpu_torch.scheduler import DDIMScheduler
 from diffews_tpu_torch.utils import to_device
 from diffews_tpu_torch.utils.image import colorize_depth_maps
+from diffews_tpu_torch.utils.profiling import annotate
 
 VAE_IMPLS = ("xla", "fused", "mixed", "auto", "int8")
 # the JAX CLIs' --attn_impl choices -> the pipeline's attn_impl
@@ -288,35 +289,36 @@ class DiffewsPipeline:
         """Predicted x0 latent of the episode (of this rank's shots under
         `shot_group`)."""
         b, n = supports.shape[0], supports.shape[1]
-        query, supports = self._norm_img(query), self._norm_img(supports)
-        masks = self._norm_mask(masks)
         flat = lambda x: x.reshape((b * n,) + tuple(x.shape[2:]))
+        with annotate("diffews.pipeline.encode"):
+            query, supports = self._norm_img(query), self._norm_img(supports)
+            masks = self._norm_mask(masks)
+            if self.attn_mask_variant:
+                # support masks become per-level attention key biases; only
+                # query and support RGB go through the VAE
+                ref_mask = (masks.float().mean(dim=-1) > 0.0).float()  # (B, N, H, W)
+                lat = self._encode_images(torch.cat([query, flat(supports)], dim=0))
+                lh, lw = lat.shape[1:3]
+                q_lat = lat[:b]
+                ref = lat[b:].reshape(b, n, lh, lw, -1)
+            else:
+                ref_mask = None
+                lat = self._encode_images(torch.cat([query, flat(supports), flat(masks)], dim=0))
+                lh, lw = lat.shape[1:3]
+                q_lat = lat[:b]
+                s_lat = lat[b:b + b * n].reshape(b, n, lh, lw, -1)
+                m_lat = lat[b + b * n:].reshape(b, n, lh, lw, -1)
+                ref = torch.cat([s_lat, m_lat], dim=-1)  # (B, N, h, w, 8)
 
-        if self.attn_mask_variant:
-            # support masks become per-level attention key biases; only
-            # query and support RGB go through the VAE
-            ref_mask = (masks.float().mean(dim=-1) > 0.0).float()  # (B, N, H, W)
-            lat = self._encode_images(torch.cat([query, flat(supports)], dim=0))
-            lh, lw = lat.shape[1:3]
-            q_lat = lat[:b]
-            ref = lat[b:].reshape(b, n, lh, lw, -1)
-        else:
-            ref_mask = None
-            lat = self._encode_images(torch.cat([query, flat(supports), flat(masks)], dim=0))
-            lh, lw = lat.shape[1:3]
-            q_lat = lat[:b]
-            s_lat = lat[b:b + b * n].reshape(b, n, lh, lw, -1)
-            m_lat = lat[b + b * n:].reshape(b, n, lh, lw, -1)
-            ref = torch.cat([s_lat, m_lat], dim=-1)  # (B, N, h, w, 8)
-
-        ctx = text_embed.expand((b,) + tuple(text_embed.shape[1:])).to(self.compute_dtype)
-        self.scheduler.set_timesteps(denoising_steps)
-        latent = x0 = q_lat
-        for t in self.scheduler.timesteps:
-            v = self.unet(latent, int(t) * self.test_timestep, ctx, ref_sample=ref,
-                          shot_mask=shot_mask, ref_mask=ref_mask,
-                          attn_impl=self.attn_impl, shot_group=shot_group)
-            latent, x0 = self.scheduler.step(v, int(t), latent)
+        with annotate("diffews.pipeline.unet"):
+            ctx = text_embed.expand((b,) + tuple(text_embed.shape[1:])).to(self.compute_dtype)
+            self.scheduler.set_timesteps(denoising_steps)
+            latent = x0 = q_lat
+            for t in self.scheduler.timesteps:
+                v = self.unet(latent, int(t) * self.test_timestep, ctx, ref_sample=ref,
+                              shot_mask=shot_mask, ref_mask=ref_mask,
+                              attn_impl=self.attn_impl, shot_group=shot_group)
+                latent, x0 = self.scheduler.step(v, int(t), latent)
         return x0
 
     def _capture(self, supports, masks, text_embed) -> tuple:
@@ -324,37 +326,41 @@ class DiffewsPipeline:
         rows never read the query rows, so the captured K/V are a joint
         episode's): the per-site `(k_sup, v_sup, bias)` entries."""
         b, n = supports.shape[0], supports.shape[1]
-        supports, masks = self._norm_img(supports), self._norm_mask(masks)
         flat = lambda x: x.reshape((b * n,) + tuple(x.shape[2:]))
-        if self.attn_mask_variant:
-            ref_mask = (masks.float().mean(dim=-1) > 0.0).float()
-            lat = self._encode_images(flat(supports))
-            ref = lat.reshape((b, n) + tuple(lat.shape[1:]))
-        else:
-            ref_mask = None
-            lat = self._encode_images(torch.cat([flat(supports), flat(masks)], dim=0))
-            s_lat, m_lat = (x.reshape((b, n) + tuple(lat.shape[1:])) for x in lat.chunk(2))
-            ref = torch.cat([s_lat, m_lat], dim=-1)
-        ctx = text_embed.expand((b,) + tuple(text_embed.shape[1:])).to(self.compute_dtype)
-        self.scheduler.set_timesteps(1)
-        t = int(self.scheduler.timesteps[0]) * self.test_timestep
-        dummy_q = torch.zeros((b,) + tuple(lat.shape[1:3]) + (self.unet_cfg.in_channels,),
-                              dtype=self.compute_dtype, device=self.device)
-        cap: list = []
-        self.unet(dummy_q, t, ctx, ref_sample=ref, ref_mask=ref_mask,
-                  attn_impl=self.attn_impl, kv_capture=cap)
+        with annotate("diffews.pipeline.encode"):
+            supports, masks = self._norm_img(supports), self._norm_mask(masks)
+            if self.attn_mask_variant:
+                ref_mask = (masks.float().mean(dim=-1) > 0.0).float()
+                lat = self._encode_images(flat(supports))
+                ref = lat.reshape((b, n) + tuple(lat.shape[1:]))
+            else:
+                ref_mask = None
+                lat = self._encode_images(torch.cat([flat(supports), flat(masks)], dim=0))
+                s_lat, m_lat = (x.reshape((b, n) + tuple(lat.shape[1:])) for x in lat.chunk(2))
+                ref = torch.cat([s_lat, m_lat], dim=-1)
+        with annotate("diffews.pipeline.unet"):
+            ctx = text_embed.expand((b,) + tuple(text_embed.shape[1:])).to(self.compute_dtype)
+            self.scheduler.set_timesteps(1)
+            t = int(self.scheduler.timesteps[0]) * self.test_timestep
+            dummy_q = torch.zeros((b,) + tuple(lat.shape[1:3]) + (self.unet_cfg.in_channels,),
+                                  dtype=self.compute_dtype, device=self.device)
+            cap: list = []
+            self.unet(dummy_q, t, ctx, ref_sample=ref, ref_mask=ref_mask,
+                      attn_impl=self.attn_impl, kv_capture=cap)
         return tuple(cap)
 
     def _x0_latent_cached(self, query, entries, shot_mask, text_embed) -> torch.Tensor:
         """Predicted x0 latent of the queries against cached support K/V."""
-        q_lat = self._encode_images(self._norm_img(query))
-        ctx = text_embed.expand((q_lat.shape[0],) + tuple(text_embed.shape[1:])).to(
-            self.compute_dtype)
-        self.scheduler.set_timesteps(1)
-        t = int(self.scheduler.timesteps[0])
-        v = self.unet(q_lat, t * self.test_timestep, ctx, shot_mask=shot_mask,
-                      attn_impl=self.attn_impl, kv_cache=entries)
-        return self.scheduler.step(v, t, q_lat)[1]
+        with annotate("diffews.pipeline.encode"):
+            q_lat = self._encode_images(self._norm_img(query))
+        with annotate("diffews.pipeline.unet"):
+            ctx = text_embed.expand((q_lat.shape[0],) + tuple(text_embed.shape[1:])).to(
+                self.compute_dtype)
+            self.scheduler.set_timesteps(1)
+            t = int(self.scheduler.timesteps[0])
+            v = self.unet(q_lat, t * self.test_timestep, ctx, shot_mask=shot_mask,
+                          attn_impl=self.attn_impl, kv_cache=entries)
+            return self.scheduler.step(v, t, q_lat)[1]
 
     def _decode_resnet_impl(self) -> str:
         """The decoder's resnets: forced "fused"/"mixed" apply to the whole
@@ -364,20 +370,23 @@ class DiffewsPipeline:
     def _decode_seg(self, x0: torch.Tensor) -> torch.Tensor:
         """VAE decode + clip(-1, 1) -> [0, 255] -> uint8 (truncating), the
         reference's PIL round-trip (`main_oss.py:128-137`)."""
-        img = self.vae.decode(x0, attn_impl=self.attn_impl,
-                              resnet_impl=self._decode_resnet_impl()).float().clamp(-1.0, 1.0)
-        img = (img * 0.5 + 0.5) * 255.0
-        return img.clamp(0.0, 255.0).to(torch.uint8)
+        with annotate("diffews.pipeline.decode"):
+            img = self.vae.decode(x0, attn_impl=self.attn_impl,
+                                  resnet_impl=self._decode_resnet_impl()).float().clamp(-1.0, 1.0)
+            img = (img * 0.5 + 0.5) * 255.0
+            return img.clamp(0.0, 255.0).to(torch.uint8)
 
     def _decode_depth(self, x0: torch.Tensor) -> torch.Tensor:
         """VAE decode -> channel mean -> clip(-1, 1) -> [0, 1], in JAX's
         order (`pipeline.py:574-579`): (B, H, W) float32."""
-        img = self.vae.decode(x0, attn_impl=self.attn_impl,
-                              resnet_impl=self._decode_resnet_impl())
-        return img.float().mean(dim=-1).clamp(-1.0, 1.0) * 0.5 + 0.5
+        with annotate("diffews.pipeline.decode"):
+            img = self.vae.decode(x0, attn_impl=self.attn_impl,
+                                  resnet_impl=self._decode_resnet_impl())
+            return img.float().mean(dim=-1).clamp(-1.0, 1.0) * 0.5 + 0.5
 
     def _put(self, x) -> torch.Tensor:
-        return to_device(torch.as_tensor(x), self.device)
+        with annotate("diffews.pipeline.upload"):
+            return to_device(torch.as_tensor(x), self.device)
 
     # -- public API ---------------------------------------------------------
 
@@ -394,8 +403,9 @@ class DiffewsPipeline:
         (B, N, H, W, 3) in [-1, 1]; shot_mask: optional (B, N) bool.
         mask_on_device: run the threshold on the device
         (`device_mask_from_seg`)."""
-        x0 = self._episode_x0(query, supports, support_masks, shot_mask, denoising_steps)
-        return self._pending(x0, out_size, r_threshold, threshold, mask_on_device)
+        with annotate("diffews.pipeline.predict"):
+            x0 = self._episode_x0(query, supports, support_masks, shot_mask, denoising_steps)
+            return self._pending(x0, out_size, r_threshold, threshold, mask_on_device)
 
     def _episode_x0(self, query, supports, support_masks, shot_mask,
                     denoising_steps) -> torch.Tensor:
@@ -429,13 +439,15 @@ class DiffewsPipeline:
         waits for the other ranks)."""
         img = self._decode_seg(x0)
         if self._data_group is not None:
-            img = mesh_lib.all_gather_rows(img, self._data_group)
-        if out_size is not None and tuple(img.shape[1:3]) != tuple(out_size):
-            img = nearest_resize(img, tuple(out_size))
-        mask_dev = None
-        if mask_on_device and (r_threshold > 0 or threshold > 0):
-            rel = r_threshold > 0
-            mask_dev = device_mask_from_seg(img, r_threshold if rel else threshold, rel)
+            with annotate("diffews.pipeline.gather"):
+                img = mesh_lib.all_gather_rows(img, self._data_group)
+        with annotate("diffews.pipeline.threshold"):
+            if out_size is not None and tuple(img.shape[1:3]) != tuple(out_size):
+                img = nearest_resize(img, tuple(out_size))
+            mask_dev = None
+            if mask_on_device and (r_threshold > 0 or threshold > 0):
+                rel = r_threshold > 0
+                mask_dev = device_mask_from_seg(img, r_threshold if rel else threshold, rel)
         return PendingSeg(img, r_threshold, threshold, mask_device=mask_dev)
 
     @torch.inference_mode()
@@ -456,17 +468,18 @@ class DiffewsPipeline:
             raise NotImplementedError(
                 "support-KV caching does not compose with shot-parallel "
                 "serving (the cache would skip the cross-device softmax merge)")
-        supports = _to_nhwc(np.asarray(supports), 5)
-        masks = _masks_nhwc(support_masks)
-        b = supports.shape[0]
-        rs = (slice(None) if b == 1
-              else mesh_lib.rows(b, self._n_data, self._data_rank, "cache batch"))
-        if shot_mask is not None:
-            shot_mask = np.asarray(shot_mask, bool)[rs]
-        entries = self._capture(self._put(supports[rs]), self._put(masks[rs]),
-                                self.empty_text_embed)
-        return SupportCache(entries=entries, shot_mask=self._put_shot_mask(shot_mask),
-                            n_shots=supports.shape[1], batch=b)
+        with annotate("diffews.pipeline.capture"):
+            supports = _to_nhwc(np.asarray(supports), 5)
+            masks = _masks_nhwc(support_masks)
+            b = supports.shape[0]
+            rs = (slice(None) if b == 1
+                  else mesh_lib.rows(b, self._n_data, self._data_rank, "cache batch"))
+            if shot_mask is not None:
+                shot_mask = np.asarray(shot_mask, bool)[rs]
+            entries = self._capture(self._put(supports[rs]), self._put(masks[rs]),
+                                    self.empty_text_embed)
+            return SupportCache(entries=entries, shot_mask=self._put_shot_mask(shot_mask),
+                                n_shots=supports.shape[1], batch=b)
 
     @torch.inference_mode()
     def predict_cached_async(self, query, cache: SupportCache, *, denoising_steps: int = 1,
@@ -489,14 +502,15 @@ class DiffewsPipeline:
         if self.shot_mesh is not None:
             raise NotImplementedError("support-KV caching does not compose with "
                                       "shot-parallel serving")
-        query = _to_nhwc(np.asarray(query), 4)
-        if cache.batch not in (1, query.shape[0]):
-            raise ValueError(f"cache batch {cache.batch} must be 1 (broadcast) or match "
-                             f"the query batch {query.shape[0]}")
-        rs = mesh_lib.rows(query.shape[0], self._n_data, self._data_rank, "query batch")
-        x0 = self._x0_latent_cached(self._put(query[rs]), cache.entries, cache.shot_mask,
-                                    self.empty_text_embed)
-        return self._pending(x0, out_size, r_threshold, threshold, mask_on_device)
+        with annotate("diffews.pipeline.predict_cached"):
+            query = _to_nhwc(np.asarray(query), 4)
+            if cache.batch not in (1, query.shape[0]):
+                raise ValueError(f"cache batch {cache.batch} must be 1 (broadcast) or match "
+                                 f"the query batch {query.shape[0]}")
+            rs = mesh_lib.rows(query.shape[0], self._n_data, self._data_rank, "query batch")
+            x0 = self._x0_latent_cached(self._put(query[rs]), cache.entries, cache.shot_mask,
+                                        self.empty_text_embed)
+            return self._pending(x0, out_size, r_threshold, threshold, mask_on_device)
 
     def predict_cached(self, *args, **kw) -> SegOutput:
         """Blocking form of `predict_cached_async`."""
@@ -520,13 +534,16 @@ class DiffewsPipeline:
         (B, H, W) float32 in [0, 1], the whole batch on every rank of a
         data mesh, bilinear-resized to `out_size`.  Arguments as in
         `predict_async`."""
-        x0 = self._episode_x0(query, supports, support_masks, shot_mask, denoising_steps)
-        depth = self._decode_depth(x0)
-        if self._data_group is not None:
-            depth = mesh_lib.all_gather_rows(depth, self._data_group)
-        if out_size is not None and tuple(depth.shape[1:3]) != tuple(out_size):
-            depth = bilinear_resize(depth[..., None], tuple(out_size))[..., 0]
-        return depth
+        with annotate("diffews.pipeline.predict"):
+            x0 = self._episode_x0(query, supports, support_masks, shot_mask, denoising_steps)
+            depth = self._decode_depth(x0)
+            if self._data_group is not None:
+                with annotate("diffews.pipeline.gather"):
+                    depth = mesh_lib.all_gather_rows(depth, self._data_group)
+            if out_size is not None and tuple(depth.shape[1:3]) != tuple(out_size):
+                with annotate("diffews.pipeline.threshold"):
+                    depth = bilinear_resize(depth[..., None], tuple(out_size))[..., 0]
+            return depth
 
     def predict_depth(self, query, supports, support_masks, *, shot_mask=None,
                       denoising_steps: int = 1, out_size: Optional[Tuple[int, int]] = None,
@@ -608,21 +625,22 @@ class PendingSeg:
         self._mask_dev = mask_device
 
     def result(self, need_seg: bool = True) -> SegOutput:
-        if self._mask_dev is not None:
-            mask = self._mask_dev.cpu().numpy()
-            seg = self._img.cpu().numpy() if need_seg else None
+        with annotate("diffews.pending.result"):
+            if self._mask_dev is not None:
+                mask = self._mask_dev.cpu().numpy()
+                seg = self._img.cpu().numpy() if need_seg else None
+                return SegOutput(seg_colored=seg, mask=mask)
+            seg = self._img.cpu().numpy()  # the synchronisation point
+            mask = None
+            if self._r_threshold > 0 or self._threshold > 0:
+                # PIL round-trip: to_tensor divides the uint8 image by 255
+                p = seg.astype(np.float32) / 255.0
+                if self._r_threshold > 0:
+                    thr = p.reshape(p.shape[0], -1).max(axis=1) * self._r_threshold
+                    mask = p.mean(axis=-1) > thr[:, None, None]
+                else:
+                    mask = p.mean(axis=-1) > self._threshold
             return SegOutput(seg_colored=seg, mask=mask)
-        seg = self._img.cpu().numpy()  # the synchronisation point
-        mask = None
-        if self._r_threshold > 0 or self._threshold > 0:
-            # PIL round-trip: to_tensor divides the uint8 image by 255
-            p = seg.astype(np.float32) / 255.0
-            if self._r_threshold > 0:
-                thr = p.reshape(p.shape[0], -1).max(axis=1) * self._r_threshold
-                mask = p.mean(axis=-1) > thr[:, None, None]
-            else:
-                mask = p.mean(axis=-1) > self._threshold
-        return SegOutput(seg_colored=seg, mask=mask)
 
 
 def _masks_nhwc(support_masks) -> np.ndarray:

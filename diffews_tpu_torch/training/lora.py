@@ -135,17 +135,12 @@ def make_lora_grad_fn(cfg: state_lib.TrainerConfig, unet: nn.Module) -> state_li
     grads)`: the episode loss of the compute-dtype base `base_c` (name ->
     tensor) merged with the flat `adapters`, and its float32 gradients
     with respect to the adapters."""
-    episode_loss = state_lib.make_episode_loss(cfg, unet)
+    episode = state_lib.make_episode_loss(cfg, unet)
     scale = lora_scale(cfg)
 
     def grad_fn(adapters, base_c, vae, text_embed, micro, noise):
-        names = list(adapters)
-        merged = merge_lora(base_c, unflatten(adapters), scale)
-        with state_lib.bind_params(unet, merged):
-            loss = episode_loss(vae, text_embed, micro, noise)
-            grads = torch.autograd.grad(loss, [adapters[n] for n in names], allow_unused=True)
-        return loss.detach(), {n: torch.zeros_like(adapters[n]) if g is None else g
-                               for n, g in zip(names, grads)}
+        prepare = lambda: (merge_lora(base_c, unflatten(adapters), scale), adapters)
+        return state_lib.episode_grads(episode, prepare, vae, text_embed, micro, noise)
 
     return grad_fn
 

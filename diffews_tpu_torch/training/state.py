@@ -69,6 +69,7 @@ from diffews_tpu_torch.training import ema as ema_lib
 from diffews_tpu_torch.training import lr as lr_lib
 from diffews_tpu_torch.training.optim import OptState, Optimizer
 from diffews_tpu_torch.training.optim import make_optimizer as _make_optimizer
+from diffews_tpu_torch.utils.profiling import annotate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -180,59 +181,100 @@ def training_text_embed(text: nn.Module, text_cfg: CLIPTextConfig) -> torch.Tens
         return text(clip_text.empty_prompt_ids(text_cfg, pad_to=77, device=device))
 
 
-def make_episode_loss(cfg: TrainerConfig, unet: nn.Module, model_group=None):
-    """Returns `loss(vae, text_embed, micro, noise)`: the reference's
-    in-context regression objective on one micro-batch, run with the
-    weights bound to `unet` (its own, or compute-dtype casts under
-    `bind_params`; this rank's tensor-parallel parts over `model_group`).
-    `vae` is the frozen VAE in the compute dtype; `noise` is a
-    `torch.Generator` for the posterior sample or its standard-normal
-    draws; `micro`'s fields are those of `make_train_step` without the gas
-    axis."""
-    dt = cfg.compute_dtype
+class EpisodeLoss:
+    """The reference's in-context regression objective on one micro-batch:
+    `loss(vae, text_embed, micro, noise)`, run with the weights bound to
+    `unet` (its own, or compute-dtype casts under `bind_params`; this
+    rank's tensor-parallel parts over `model_group`).  `vae` is the frozen
+    VAE in the compute dtype; `noise` is a `torch.Generator` for the
+    posterior sample or its standard-normal draws; `micro`'s fields are
+    those of `make_train_step` without the gas axis.
 
-    def norm_img(x):
+    Its two stages, which the training step runs under spans of their own:
+    `latents(vae, micro, noise)` (the streams normalised and their no-grad
+    posterior sample; no UNet weight is read) and `forward(lat, text_embed,
+    micro)` (the UNet forward and the loss)."""
+
+    def __init__(self, cfg: TrainerConfig, unet: nn.Module, model_group=None):
+        self.cfg, self.unet, self.model_group = cfg, unet, model_group
+
+    def _norm_img(self, x):
         if x.dtype == torch.uint8:
             x = _true_div(_true_div(x.float(), 255.0) - 0.5, 0.5)
-        return x.to(dt)
+        return x.to(self.cfg.compute_dtype)
 
-    def norm_mask(m, img_ndim):
+    def _norm_mask(self, m, img_ndim):
         if m.ndim == img_ndim - 1:  # binary (..., H, W) {0,1}
             mf = m.float() * 2.0 - 1.0
-            return mf[..., None].expand(mf.shape + (3,)).to(dt)
-        return norm_img(m)
+            return mf[..., None].expand(mf.shape + (3,)).to(self.cfg.compute_dtype)
+        return self._norm_img(m)
 
-    def loss(vae, text_embed, micro, noise):
-        q = norm_img(micro["query"])
-        qm3 = norm_mask(micro["q_mask3"], micro["query"].ndim)
-        sup = norm_img(micro["supports"])
-        sm3 = norm_mask(micro["s_mask3"], micro["supports"].ndim)
-        b, n = sup.shape[0], sup.shape[1]
-        flat = lambda x: x.reshape((b * n,) + tuple(x.shape[2:]))
-        streams = [q, qm3, flat(sup)]
-        if not cfg.attn_mask_variant:
-            streams.append(flat(sm3))
-        with torch.no_grad():  # frozen VAE: stochastic posterior sample
-            gen = noise if isinstance(noise, torch.Generator) else None
-            lat = vae.sample_latent(torch.cat(streams, dim=0), None if gen else noise,
-                                    generator=gen, attn_impl=cfg.attn_impl)
-        lh, lw = lat.shape[1:3]
-        q_lat, qm_lat = lat[:b], lat[b:2 * b]
-        s_lat = lat[2 * b:2 * b + b * n].reshape(b, n, lh, lw, -1)
-        if cfg.attn_mask_variant:
-            ref = s_lat
-            ref_mask = (sm3.float().mean(dim=-1) > 0.0).float()  # (B, N, H, W)
-        else:
-            sm_lat = lat[2 * b + b * n:].reshape(b, n, lh, lw, -1)
-            ref = torch.cat([s_lat, sm_lat], dim=-1)
-            ref_mask = None
-        ctx = text_embed.expand((b,) + tuple(text_embed.shape[1:])).to(dt)
-        pred = unet(q_lat, cfg.train_timestep, ctx, ref_sample=ref,
-                    shot_mask=micro["shot_mask"], ref_mask=ref_mask,
-                    attn_impl=cfg.attn_impl, remat=cfg.remat, model_group=model_group)
+    def latents(self, vae, micro, noise) -> tuple:
+        """(query latent, query-mask latent, support stream, attn-mask
+        variant's support masks or None)."""
+        cfg = self.cfg
+        with annotate("diffews.train.latents"):
+            q = self._norm_img(micro["query"])
+            qm3 = self._norm_mask(micro["q_mask3"], micro["query"].ndim)
+            sup = self._norm_img(micro["supports"])
+            sm3 = self._norm_mask(micro["s_mask3"], micro["supports"].ndim)
+            b, n = sup.shape[0], sup.shape[1]
+            flat = lambda x: x.reshape((b * n,) + tuple(x.shape[2:]))
+            streams = [q, qm3, flat(sup)]
+            if not cfg.attn_mask_variant:
+                streams.append(flat(sm3))
+            with torch.no_grad():  # frozen VAE: stochastic posterior sample
+                gen = noise if isinstance(noise, torch.Generator) else None
+                lat = vae.sample_latent(torch.cat(streams, dim=0), None if gen else noise,
+                                        generator=gen, attn_impl=cfg.attn_impl)
+            lh, lw = lat.shape[1:3]
+            q_lat, qm_lat = lat[:b], lat[b:2 * b]
+            s_lat = lat[2 * b:2 * b + b * n].reshape(b, n, lh, lw, -1)
+            if cfg.attn_mask_variant:
+                ref = s_lat
+                ref_mask = (sm3.float().mean(dim=-1) > 0.0).float()  # (B, N, H, W)
+            else:
+                sm_lat = lat[2 * b + b * n:].reshape(b, n, lh, lw, -1)
+                ref = torch.cat([s_lat, sm_lat], dim=-1)
+                ref_mask = None
+            return q_lat, qm_lat, ref, ref_mask
+
+    def forward(self, lat: tuple, text_embed, micro) -> torch.Tensor:
+        cfg = self.cfg
+        q_lat, qm_lat, ref, ref_mask = lat
+        ctx = text_embed.expand((q_lat.shape[0],) + tuple(text_embed.shape[1:])).to(
+            cfg.compute_dtype)
+        pred = self.unet(q_lat, cfg.train_timestep, ctx, ref_sample=ref,
+                         shot_mask=micro["shot_mask"], ref_mask=ref_mask,
+                         attn_impl=cfg.attn_impl, remat=cfg.remat,
+                         model_group=self.model_group)
         return (pred.float() - (-qm_lat).float()).square().mean()
 
-    return loss
+    def __call__(self, vae, text_embed, micro, noise) -> torch.Tensor:
+        return self.forward(self.latents(vae, micro, noise), text_embed, micro)
+
+
+def make_episode_loss(cfg: TrainerConfig, unet: nn.Module, model_group=None) -> EpisodeLoss:
+    return EpisodeLoss(cfg, unet, model_group)
+
+
+def episode_grads(episode: EpisodeLoss, prepare, vae, text_embed, micro, noise):
+    """(loss, float32 gradients) of `episode` on one micro-batch.
+    `prepare()` returns (the weights to bind to the UNet, name -> tensor;
+    the tensors to differentiate with respect to, name -> tensor); one the
+    loss does not reach gets a zero gradient, as in JAX.  The parts run
+    under the step's spans: latents, forward (`prepare`, the binding, the
+    UNet forward and the loss) and backward (remat's recomputation too)."""
+    lat = episode.latents(vae, micro, noise)
+    with contextlib.ExitStack() as bound:
+        with annotate("diffews.train.forward"):
+            weights, wrt = prepare()
+            bound.enter_context(bind_params(episode.unet, weights))
+            loss = episode.forward(lat, text_embed, micro)
+        with annotate("diffews.train.backward"):
+            grads = torch.autograd.grad(loss, list(wrt.values()), allow_unused=True)
+            return loss.detach(), {n: torch.zeros_like(t, dtype=torch.float32) if g is None
+                                   else g.float() for (n, t), g in zip(wrt.items(), grads)}
 
 
 GradFn = Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
@@ -243,17 +285,12 @@ def make_grad_fn(cfg: TrainerConfig, unet: nn.Module) -> GradFn:
     grads)`: the episode loss with `params` (float32 masters) cast to the
     compute dtype, and its float32 gradients with respect to them.  A
     parameter the loss does not reach gets a zero gradient, as in JAX."""
-    episode_loss = make_episode_loss(cfg, unet)
+    episode = make_episode_loss(cfg, unet)
     dt = cfg.compute_dtype
 
     def grad_fn(params, vae, text_embed, micro, noise):
-        names = list(params)
-        params_c = {n: params[n].to(dt) for n in names}
-        with bind_params(unet, params_c):
-            loss = episode_loss(vae, text_embed, micro, noise)
-            grads = torch.autograd.grad(loss, [params[n] for n in names], allow_unused=True)
-        return loss.detach(), {n: torch.zeros_like(params[n]) if g is None else g
-                               for n, g in zip(names, grads)}
+        prepare = lambda: ({n: p.to(dt) for n, p in params.items()}, params)
+        return episode_grads(episode, prepare, vae, text_embed, micro, noise)
 
     return grad_fn
 
@@ -265,25 +302,21 @@ def make_sharded_grad_fn(cfg: TrainerConfig, unet: nn.Module, layout) -> GradFn:
     the whole other leaves to `unet`, and returns the loss and the float32
     gradients of what it bound (the gradient of a cast is the cast's
     gradient, as in JAX)."""
-    episode_loss = make_episode_loss(cfg, unet, model_group=layout.model_group)
+    episode = make_episode_loss(cfg, unet, model_group=layout.model_group)
     dt = cfg.compute_dtype
 
     def grad_fn(shards, vae, text_embed, micro, noise):
-        names = list(shards)
-        full = {}
-        with torch.no_grad():
-            for n in names:
-                t = layout.gather_data(n, shards[n].detach().to(dt))
-                if t.ndim == 4 and t.is_cuda:
-                    t = t.contiguous(memory_format=torch.channels_last)
-                full[n] = t.requires_grad_(True)
-        with bind_params(unet, full):
-            loss = episode_loss(vae, text_embed, micro, noise)
-            grads = torch.autograd.grad(loss, [full[n] for n in names], allow_unused=True)
-        return loss.detach(), {n: (torch.zeros(full[n].shape, dtype=torch.float32,
-                                               device=full[n].device)
-                                   if g is None else g.float())
-                               for n, g in zip(names, grads)}
+        def prepare():
+            full = {}
+            with torch.no_grad():
+                for n, s in shards.items():
+                    t = layout.gather_data(n, s.detach().to(dt))
+                    if t.ndim == 4 and t.is_cuda:
+                        t = t.contiguous(memory_format=torch.channels_last)
+                    full[n] = t.requires_grad_(True)
+            return full, full
+
+        return episode_grads(episode, prepare, vae, text_embed, micro, noise)
 
     return grad_fn
 
@@ -344,23 +377,27 @@ def step_from_grad_fn(cfg: TrainerConfig, grad_fn: GradFn, *, data_group=None, l
     tx = make_optimizer(cfg, layout=layout)
 
     def step_fn(state: TrainState, batch, rng, *extra) -> Tuple[TrainState, dict]:
-        gas = batch["query"].shape[0]
-        noises = [rng] * gas if isinstance(rng, torch.Generator) else rng
-        loss, grads = accumulate_grads(grad_fn, state.params, extra, batch, noises, gas)
-        if data_group is not None:
-            loss = loss.clone()
-            mesh_lib.all_reduce_mean([loss] + list(grads.values()), data_group)
-        if layout is not None:
-            grads = {n: layout.shard_data(n, g) for n, g in grads.items()}
-        gnorm = tx.update(grads, state.opt_state, state.params)
-        del grads
-        if state.ema is not None:
-            ema_lib.update(state.ema, state.params)
-        state.step = state.step + 1
-        metrics: Dict[str, Any] = {"loss": loss, "grad_norm": gnorm}
-        if cfg.max_nonfinite_steps > 0:
-            metrics["notfinite_count"] = state.opt_state.notfinite_count
-            metrics["total_notfinite"] = state.opt_state.total_notfinite
-        return state, metrics
+        with annotate("diffews.train.step"):
+            gas = batch["query"].shape[0]
+            noises = [rng] * gas if isinstance(rng, torch.Generator) else rng
+            loss, grads = accumulate_grads(grad_fn, state.params, extra, batch, noises, gas)
+            if data_group is not None:
+                with annotate("diffews.train.reduce"):
+                    loss = loss.clone()
+                    mesh_lib.all_reduce_mean([loss] + list(grads.values()), data_group)
+            if layout is not None:
+                grads = {n: layout.shard_data(n, g) for n, g in grads.items()}
+            with annotate("diffews.train.optimizer"):
+                gnorm = tx.update(grads, state.opt_state, state.params)
+            del grads
+            if state.ema is not None:
+                with annotate("diffews.train.ema"):
+                    ema_lib.update(state.ema, state.params)
+            state.step = state.step + 1
+            metrics: Dict[str, Any] = {"loss": loss, "grad_norm": gnorm}
+            if cfg.max_nonfinite_steps > 0:
+                metrics["notfinite_count"] = state.opt_state.notfinite_count
+                metrics["total_notfinite"] = state.opt_state.total_notfinite
+            return state, metrics
 
     return step_fn

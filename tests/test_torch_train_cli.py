@@ -297,7 +297,9 @@ def test_metrics_validation_and_profile_outputs(port_run):
     assert [l.split(":")[0] for l in lines] == ["step 2", "step 4"]
     assert all("val mIoU" in l for l in lines)
     traces = list((out / "profile").glob("*.json"))
-    assert len(traces) == 1 and json.load(traces[0].open())["traceEvents"]
+    assert len(traces) == 1
+    events = json.load(traces[0].open())["traceEvents"]
+    assert any(e.get("name") == "diffews.train.optimizer" for e in events)
     assert [s["step"] for s in report["saves"]] == [2, 4]
     assert all(s["bytes"] > 0 and s["write_s"] > 0 for s in report["saves"])
 
