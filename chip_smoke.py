@@ -46,6 +46,16 @@ Phases, each of which fails the run (non-zero exit) on any error:
      against its batch row, bit-identical repeats, with kernel / plain /
      cuDNN (`F.pad` + `F.conv2d`) times, TFLOP/s and the share of the
      bound;
+  7b. adamw: the multi-tensor clip -> AdamW -> apply_if_finite kernels
+     (`ops/adamw.py`) at the SD-2.1 UNet's 688 leaves (865.9 M float32
+     masters, 4-D ones channels-last, bf16 first moment, clipped): the
+     update against the plain version bit for bit given the same norm, the
+     norm within 1e-6 of the plain one; device times (CUDA events) of the
+     norm pass, the apply pass, the whole kernel update and the plain
+     update, the kernel update's host time, its CUDA launch calls (the
+     profiler's runtime calls) and port launches a step, the byte bound,
+     and `torch.optim.AdamW(fused=True)` over the same leaves (no clip, f32
+     moments) as the yardstick;
   8. tiny: tiny-config f32 episodes on the card (kernels) against the same
      episodes on the CPU (plain versions), under `vae_impl` "xla",
      "fused", "mixed" (threshold lowered) and "auto"; and cached-support
@@ -951,6 +961,96 @@ def phase_downsample(recorded):
     return rows, launches
 
 
+def phase_adamw(card):
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from diffews_tpu_torch.ops import adamw
+    from diffews_tpu_torch.training import lr, optim
+    from helpers import adamw_leaves as L
+
+    dev = torch.device("cuda")
+    params, grads, state = L.draw(L.sd21_shapes(), dev, seed=0)
+    names = list(params)
+    n = sum(p.numel() for p in params.values())
+    tx = optim.make_optimizer(lr.polynomial_with_warmup(1e-5, 20000), max_grad_norm=1.0)
+    plain_norm = float(optim.global_norm(list(grads.values())))
+
+    # the update against the plain version, given the kernels' norm
+    params2 = {k: p.clone() for k, p in params.items()}
+    state2 = L.clone_state(state)
+    gk = tx.update(grads, state, params)
+    keep_norm = optim.global_norm
+    optim.global_norm = lambda ts: gk.clone()
+    try:
+        tx.plain(grads, state2, params2)
+    finally:
+        optim.global_norm = keep_norm
+    bits = lambda t: t.view(torch.int32 if t.dtype == torch.float32 else torch.int16)  # noqa: E731
+    differ = [k for k in names if not (torch.equal(bits(params[k]), bits(params2[k]))
+                                       and torch.equal(bits(state.mu[k]), bits(state2.mu[k]))
+                                       and torch.equal(bits(state.nu[k]), bits(state2.nu[k])))]
+    check(not differ, f"adamw: the kernels' update differs from the plain version at "
+                      f"{differ[:5]} ({len(differ)} leaves)")
+    norm_rel = abs(float(gk) - plain_norm) / plain_norm
+    check(norm_rel <= 1e-6, f"adamw: norm {float(gk)} against plain {plain_norm}")
+    del params2, state2
+    torch.cuda.empty_cache()
+
+    # device times
+    lists = ([grads[k] for k in names], [params[k] for k in names],
+             [state.mu[k] for k in names], [state.nu[k] for k in names])
+    kernels = adamw.MultiTensor((1.0, 0.1, 0.8984375, 1e-3, 0.999, 1e-8, 1e-2))
+    step = kernels.norm(*lists, [0] * len(names))
+    f32 = dict(dtype=torch.float32, device=dev)
+    scalars = (step.norm, torch.ones((), dtype=torch.bool, device=dev),
+               torch.ones((), dtype=torch.bool, device=dev), torch.full((), 0.5, **f32),
+               torch.full((), 0.1, **f32), torch.full((), -1e-5, **f32))
+    norm_ms = cuda_ms(lambda: kernels.norm(*lists, [0] * len(names)), inner=5)
+    apply_ms = cuda_ms(lambda: step.apply(*scalars), inner=5)
+    update = lambda: tx.update(grads, state, params)  # noqa: E731
+    update_ms = cuda_ms(update, inner=5)
+    plain_ms = cuda_ms(lambda: tx.plain(grads, state, params), reps=3, warmup=1)
+    torch.cuda.synchronize()
+    host = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        update()
+        host.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    _zero_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            update()
+        torch.cuda.synchronize()
+    port = {k: _launch_counts()[k] / 3 for k in ADAMW_COUNTS}
+    calls = {}
+    for e in prof.events():
+        if e.name in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                      "cudaMemcpyAsync"):
+            calls[e.name] = calls.get(e.name, 0) + 1
+    calls = {k: v / 3 for k, v in calls.items()}
+
+    # the yardstick: torch's fused AdamW over the same leaves (f32 moments, no clip)
+    del step
+    for k in names:
+        params[k].grad = grads[k]
+    lib = torch.optim.AdamW([params[k] for k in names], lr=1e-5, fused=True)
+    library_ms = cuda_ms(lib.step, inner=3)
+    del lib
+    bound_ms = (24 + 4) * n / MEM_BW * 1e3
+    row = {"leaves": len(names), "params": n, "bits_equal": True, "norm_rel": norm_rel,
+           "norm_ms": norm_ms, "apply_ms": apply_ms, "ms": update_ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "bound_ms": bound_ms,
+           "apply_bound_ms": 24 * n / MEM_BW * 1e3, "norm_bound_ms": 4 * n / MEM_BW * 1e3,
+           "share_of_bound": bound_ms / update_ms, "host_ms": statistics.median(host),
+           "cuda_calls_per_step": calls, "port_launches_per_step": port, "card": card}
+    RESULTS["adamw"] = row
+    emit({"phase": "adamw", **row})
+    return row
+
+
 def _episode(b, n, s, seed):
     rng = np.random.default_rng(seed)
     q = rng.integers(0, 256, (b, s, s, 3), dtype=np.uint8)
@@ -978,8 +1078,14 @@ def _uint8_close(a, b, what):
     return mx, frac
 
 
+# the optimizer kernels' counters (`ops/adamw.py`): one norm, finalise and
+# apply launch an optimizer step, and no gradient copied into its master's
+# layout
+ADAMW_COUNTS = ("adamw_norm", "adamw_finalise", "adamw_apply", "adamw_layout_copies")
+
+
 def _launch_counts():
-    from diffews_tpu_torch.ops import downsample, fused_resnet, groupnorm, quant
+    from diffews_tpu_torch.ops import adamw, downsample, fused_resnet, groupnorm, quant
     from diffews_tpu_torch.ops.flash_attention import flash_attention
 
     return {"flash_attention_fwd": flash_attention.launches,
@@ -989,11 +1095,15 @@ def _launch_counts():
             "downsample_conv2x": downsample.downsample_conv2x.launches,
             "quantize_s8": quant.quantize_s8.launches,
             "conv2d_int8": quant.conv2d_int8.launches,
-            "int_mm": quant.linear_int8.launches}
+            "int_mm": quant.linear_int8.launches,
+            "adamw_norm": adamw.norm_pass.launches,
+            "adamw_finalise": adamw.finalise_pass.launches,
+            "adamw_apply": adamw.apply_pass.launches,
+            "adamw_layout_copies": adamw.match_layouts.layout_copies}
 
 
 def _zero_counts():
-    from diffews_tpu_torch.ops import downsample, fused_resnet, groupnorm, quant
+    from diffews_tpu_torch.ops import adamw, downsample, fused_resnet, groupnorm, quant
     from diffews_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bwd
 
     flash_attention.launches = 0
@@ -1002,15 +1112,18 @@ def _zero_counts():
     fused_resnet.gn_silu_conv3x3.launches = 0
     downsample.downsample_conv2x.launches = 0
     quant.quantize_s8.launches = quant.conv2d_int8.launches = quant.linear_int8.launches = 0
+    adamw.norm_pass.launches = adamw.finalise_pass.launches = adamw.apply_pass.launches = 0
+    adamw.match_layouts.layout_copies = 0
 
 
 def _expect(flash, gn, fused):
     """Launch counts of a pipeline path: `gn` of each GroupNorm kernel, and
     no downsample launch (the op is on no pipeline path, as in the JAX
-    package) and no int8 launch (W8A8 is opt-in, phase int8)."""
+    package), no int8 launch (W8A8 is opt-in, phase int8) and no optimizer
+    launch."""
     return {"flash_attention_fwd": flash, "gn_stats": gn, "gn_apply": gn,
             "fused_gn_silu_conv3x3": fused, "downsample_conv2x": 0, "quantize_s8": 0,
-            "conv2d_int8": 0, "int_mm": 0}
+            "conv2d_int8": 0, "int_mm": 0, **{k: 0 for k in ADAMW_COUNTS}}
 
 
 def phase_tiny():
@@ -3056,7 +3169,8 @@ def phase_train(card):
     check(launches == TRAIN_CLI_LAUNCHES,
           f"a 1-shot micro-step launched {launches}; expected 65 flash forward (32 + 32 "
           "recomputed under remat + 1 VAE encode), 32 dq, 32 dkv, 109 GroupNorm stats and "
-          "apply (44 + 44 recomputed + 21 in the VAE encode), and no other kernel")
+          "apply (44 + 44 recomputed + 21 in the VAE encode), the optimizer's norm, finalise "
+          "and apply, no gradient copied into another layout, and no other kernel")
     before = snap()
     torch.cuda.reset_peak_memory_stats()
     synced, losses = [], []
@@ -3312,7 +3426,8 @@ class _CountedSteps:
 TRAIN_CLI_LAUNCHES = {"flash_attention_fwd": 65, "flash_attention_bwd_dq": 32,
                       "flash_attention_bwd_dkv": 32, "gn_stats": 109, "gn_apply": 109,
                       "fused_gn_silu_conv3x3": 0, "downsample_conv2x": 0, "quantize_s8": 0,
-                      "conv2d_int8": 0, "int_mm": 0}
+                      "conv2d_int8": 0, "int_mm": 0, "adamw_norm": 1, "adamw_finalise": 1,
+                      "adamw_apply": 1, "adamw_layout_copies": 0}
 
 
 def _train_cli_tiny(tmp, data):
@@ -4369,7 +4484,7 @@ def phase_multi(card, work):
 def kernel_record(rows, bwd_rows, norm_rows, fused_rows, down_rows, episode_launches,
                   train_launches, cached_launches, down_launches, eval_launches,
                   serve_launches, train_cli_launches, multi_launches, int8_rows, int8_launches,
-                  depth_launches):
+                  depth_launches, adamw_row):
     """One entry per kernel.  `launches` is the count on the path of the
     slice that ported it (the training micro-step for the flash kernels,
     the default episode for the GroupNorm kernels, the `vae_impl="fused"`
@@ -4527,10 +4642,32 @@ def kernel_record(rows, bwd_rows, norm_rows, fused_rows, down_rows, episode_laun
                  "out; no PyTorch call computes the int8 conv (library_ms null; cudnn_bf16_ms "
                  "is cuDNN's bf16 F.conv2d at the shape, the yardstick); bit for bit equal "
                  "to its plain version at every shape"})
+    out.append({
+        "name": "adamw_multi_tensor", "route": "cuda", "source": src + "adamw.cu",
+        "replaces": "none: the JAX package leaves the optax chain to XLA's fusion",
+        "launches": train_launches["adamw_apply"],
+        "launches_by_kernel": {k: train_launches[k] for k in ADAMW_COUNTS},
+        "launches_by_path": {"train_micro_step_1shot_b1": train_launches["adamw_apply"],
+                             **{p: c["adamw_apply"] for p, c in train_cli_launches.items()},
+                             **{p: c["adamw_apply"] for p, c in multi_launches.items()
+                                if "adamw_apply" in c}},
+        "cuda_calls_per_step": adamw_row["cuda_calls_per_step"],
+        "max_abs_err": 0.0, "ms": adamw_row["ms"], "plain_ms": adamw_row["plain_ms"],
+        "bound_ms": adamw_row["bound_ms"], "bound_by": "bytes",
+        "library_ms": adamw_row["library_ms"], "share_of_bound": adamw_row["share_of_bound"],
+        "design": "a chunk table over every leaf, one block a 65536-element chunk: a norm "
+                  "pass (f32 partial Σg² and isfinite flag a chunk), a one-block finalise "
+                  "(partials added in chunk order into the norm groups), then one apply "
+                  "pass (clip, AdamW, apply_if_finite; correctly rounded f32 ops, 16-byte "
+                  "accesses); nothing read on the host",
+        "shape": "the SD-2.1 UNet's 688 leaves (865.9 M float32 masters, bf16 first "
+                 "moment); bit for bit the plain update given the same norm; library_ms "
+                 "is torch.optim.AdamW(fused=True) over the same leaves (f32 moments, no "
+                 "clip), never on the port's path"})
     return {"kernels": out}
 
 
-PHASES = ("device,build,kernel,bwd,norm,fused,downsample,tiny,tiny_train,full,depth,int8,eval,"
+PHASES = ("device,build,kernel,bwd,norm,fused,downsample,adamw,tiny,tiny_train,full,depth,int8,eval,"
           "cached,serve,train,train_cli,multi")
 
 
@@ -4576,6 +4713,7 @@ def main():
                                        default=([], None))
         del down_inputs
         torch.cuda.empty_cache()
+    adamw_row = run("adamw", phase_adamw, card)
     run("tiny", phase_tiny)
     run("tiny_train", phase_tiny_train)
     episode_launches = run("full", phase_full, card)
@@ -4606,7 +4744,7 @@ def main():
     emit(kernel_record(rows, bwd_rows, norm_rows, fused_rows, down_rows, episode_launches,
                        train_launches, cached_launches, down_launches, eval_launches,
                        serve_launches, train_cli_launches, multi_launches, int8_rows,
-                       int8_launches, depth_launches))
+                       int8_launches, depth_launches, adamw_row))
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
 

@@ -80,8 +80,9 @@ def launch_counts() -> Dict[str, int]:
     """Launches since the process started (or the counter was last
     zeroed) of each of the port's CUDA kernels, read from the counters the
     kernel wrappers keep (`<wrapper>.launches`); `int_mm` counts the int8
-    linears' `torch._int_mm` calls."""
-    from diffews_tpu_torch.ops import downsample, fused_resnet, groupnorm, quant
+    linears' `torch._int_mm` calls, `adamw_layout_copies` the gradients
+    the optimizer kernels first copied into their master's layout."""
+    from diffews_tpu_torch.ops import adamw, downsample, fused_resnet, groupnorm, quant
     from diffews_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bwd
 
     return {"flash_attention_fwd": flash_attention.launches,
@@ -93,7 +94,11 @@ def launch_counts() -> Dict[str, int]:
             "downsample_conv2x": downsample.downsample_conv2x.launches,
             "quantize_s8": quant.quantize_s8.launches,
             "conv2d_int8": quant.conv2d_int8.launches,
-            "int_mm": quant.linear_int8.launches}
+            "int_mm": quant.linear_int8.launches,
+            "adamw_norm": adamw.norm_pass.launches,
+            "adamw_finalise": adamw.finalise_pass.launches,
+            "adamw_apply": adamw.apply_pass.launches,
+            "adamw_layout_copies": adamw.match_layouts.layout_copies}
 
 
 class StageTimer:

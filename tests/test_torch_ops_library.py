@@ -6,13 +6,16 @@ registration, AOT dispatch) passes, and its result equals its plain
 version's bit for bit, with contiguous outputs.  The CUDA implementation of
 each op is the kernel's launcher; it is held against the same plain
 versions on the card (`tests/test_torch_serve_gpu.py`, `chip_smoke.py`).
+The optimizer's two ops (`ops/adamw.py`) run on CUDA tensors only and are
+held against their plain version on the card (`tests/test_torch_adamw_gpu.py`).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from diffews_tpu_torch.ops import downsample, flash_attention, fused_resnet, groupnorm, quant
+from diffews_tpu_torch.ops import (adamw, downsample, flash_attention, fused_resnet,  # noqa: F401
+                                   groupnorm, quant)
 from helpers.torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 OPS = torch.ops.diffews_tpu_torch
@@ -87,4 +90,5 @@ def test_op_opcheck_and_plain_version(case, dtype):
 def test_every_forward_kernel_has_one_op():
     names = {n for n in dir(OPS) if not n.startswith("_") and n != "name"}
     assert names == {"flash_attention_fwd", "gn_stats", "gn_apply",
-                     "fused_gn_silu_conv3x3", "downsample_conv2x", "quantize_s8", "conv2d_int8"}
+                     "fused_gn_silu_conv3x3", "downsample_conv2x", "quantize_s8", "conv2d_int8",
+                     "adamw_norm", "adamw_apply"}

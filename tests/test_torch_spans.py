@@ -180,7 +180,7 @@ def test_train_step_spans_and_outputs():
 
 
 def test_launch_counts_reads_every_counter():
-    from diffews_tpu_torch.ops import downsample, fused_resnet, groupnorm, quant
+    from diffews_tpu_torch.ops import adamw, downsample, fused_resnet, groupnorm, quant
     from diffews_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bwd
 
     want = {"flash_attention_fwd": flash_attention.launches,
@@ -192,7 +192,11 @@ def test_launch_counts_reads_every_counter():
             "downsample_conv2x": downsample.downsample_conv2x.launches,
             "quantize_s8": quant.quantize_s8.launches,
             "conv2d_int8": quant.conv2d_int8.launches,
-            "int_mm": quant.linear_int8.launches}
+            "int_mm": quant.linear_int8.launches,
+            "adamw_norm": adamw.norm_pass.launches,
+            "adamw_finalise": adamw.finalise_pass.launches,
+            "adamw_apply": adamw.apply_pass.launches,
+            "adamw_layout_copies": adamw.match_layouts.layout_copies}
     assert profiling.launch_counts() == want
     flash_attention.launches += 7
     try:
