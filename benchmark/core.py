@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from benchmark import checks, generator, trace as trace_lib, weights as weights_lib, work as work_lib
+from benchmark.reference import model as M
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "diffews_tpu")
 WARM_STEPS = 3          # loop steps before the window: every shape, allocator and pinned pool warm
@@ -72,36 +73,47 @@ def forbidden_modules() -> list:
 # ---------------------------------------------------------------------------
 
 
-def port_models(cfg: dict, wts: dict) -> dict:
-    """The port's UNet, VAE and text tower with the benchmark's weights
-    (the tensors themselves, on their device), and their config objects."""
+def port_bundle(cfg: dict, wts: dict):
+    """The port's `PipelineBundle` of every model the configuration names
+    (`unet`, `vae` and each text tower of `M.TOWERS`), each built by the
+    port from its dict through the port's config class and loaded strictly
+    with the benchmark's weights (the tensors themselves, on their device).
+    A field or a model the port does not know is refused by the port."""
+    from diffews_tpu_torch import checkpoint as ckpt_lib
     from diffews_tpu_torch import configs
     from diffews_tpu_torch.models.clip_text import CLIPTextModel
     from diffews_tpu_torch.models.unet import UNet2DConditionModel
     from diffews_tpu_torch.models.vae import AutoencoderKL
 
+    classes = {"unet": (UNet2DConditionModel, configs.UNetConfig),
+               "vae": (AutoencoderKL, configs.VAEConfig),
+               **{k: (CLIPTextModel, configs.CLIPTextConfig) for k in M.TOWERS}}
     tup = lambda d: {k: tuple(v) if isinstance(v, list) else v for k, v in d.items()}
-    out = {}
-    for key, cls, c in (("unet", UNet2DConditionModel, configs.UNetConfig(**tup(cfg["unet"]))),
-                        ("vae", AutoencoderKL, configs.VAEConfig(**tup(cfg["vae"]))),
-                        ("text", CLIPTextModel, configs.CLIPTextConfig(**cfg["text"]))):
+    parts = {}
+    for key in ["unet", "vae"] + [k for k in M.TOWERS if k in cfg]:
+        cls, conf = classes[key]
+        c = conf(**tup(cfg[key]))
         with torch.device("meta"):
             m = cls(c)
         m.load_state_dict(wts[key], strict=True, assign=True)
-        out[key] = m
-    return out
+        parts[key], parts[f"{key}_cfg"] = m, c
+    return ckpt_lib.PipelineBundle(scheduler_cfg=configs.SchedulerConfig.diffews(), **parts)
+
+
+def port_training_text(bundle, device) -> torch.Tensor:
+    """The training step's text conditioning, as the port computes it from
+    the bundle's text tower on `device`."""
+    from diffews_tpu_torch.training import state as st
+
+    return st.training_text_embed(bundle.text.to(device), bundle.text_cfg)
 
 
 def build_program(cfg: dict, wts: dict, device):
     """The port's pipeline on `device` with the benchmark's weights."""
-    from diffews_tpu_torch import checkpoint as ckpt_lib
-    from diffews_tpu_torch.configs import SchedulerConfig
     from diffews_tpu_torch.pipeline import DiffewsPipeline
 
-    m = port_models(cfg, wts)
-    bundle = ckpt_lib.PipelineBundle(m["unet"], m["unet"].cfg, m["vae"], m["vae"].cfg, m["text"],
-                                     m["text"].cfg, SchedulerConfig.diffews())
-    return DiffewsPipeline(bundle, device=device, compute_dtype=getattr(torch, cfg["compute_dtype"]),
+    return DiffewsPipeline(port_bundle(cfg, wts), device=device,
+                           compute_dtype=getattr(torch, cfg["compute_dtype"]),
                            attn_impl=cfg["attn_impl"], vae_impl=cfg["vae_impl"],
                            unet_int8=cfg["unet_int8"])
 

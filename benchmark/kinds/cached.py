@@ -26,9 +26,10 @@ def count(s) -> None:
     uc, vc = s.cfg["unet"], s.cfg["vae"]
     entries: list = []
     M.unet(M.Net(), uc, s.meta(1, uc["in_channels"], s.h, s.h), s.t, s.ctx,
-           ref=s.meta(1, s.n, uc["ref_in_channels"], s.h, s.h), capture=entries)
+           ref=s.meta(1, s.n, uc["ref_in_channels"], s.h, s.h), capture=entries, added=s.added)
     M.vae_encode_mean(s.vae, vc, s.meta(s.b, 3, s.r, s.r))
-    M.unet(s.unet, uc, s.meta(s.b, uc["in_channels"], s.h, s.h), s.t, s.ctx, cache=entries)
+    M.unet(s.unet, uc, s.meta(s.b, uc["in_channels"], s.h, s.h), s.t, s.ctx, cache=entries,
+           added=s.added)
     M.vae_decode(s.vae, vc, s.meta(s.b, vc["latent_channels"], s.h, s.h))
 
 

@@ -20,7 +20,7 @@ def count(s) -> None:
     uc, vc = s.cfg["unet"], s.cfg["vae"]
     M.vae_encode_mean(s.vae, vc, s.meta(s.b + 2 * s.b * s.n, 3, s.r, s.r))
     M.unet(s.unet, uc, s.meta(s.b, uc["in_channels"], s.h, s.h), s.t, s.ctx,
-           ref=s.meta(s.b, s.n, uc["ref_in_channels"], s.h, s.h))
+           ref=s.meta(s.b, s.n, uc["ref_in_channels"], s.h, s.h), added=s.added)
     M.vae_decode(s.vae, vc, s.meta(s.b, vc["latent_channels"], s.h, s.h))
 
 

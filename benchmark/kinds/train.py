@@ -62,9 +62,9 @@ def count(s) -> None:
     uc, vc, b, n, r, h = s.cfg["unet"], s.cfg["vae"], s.b, s.n, s.r, s.h
     M.vae_moments(s.vae, vc, s.meta(2 * b + 2 * b * n, 3, r, r))
     uw = M.Work(elt=s.work.elt)
-    M.unet(M.Net(work=uw), uc, s.meta(b, uc["in_channels"], h, h), s.t,
-           s.meta(1, s.cfg["text"]["max_position_embeddings"], uc["cross_attention_dim"]),
-           ref=s.meta(b, n, uc["ref_in_channels"], h, h))
+    ctx, added = work_lib.conditioning(s.cfg, padded=True)
+    M.unet(M.Net(work=uw), uc, s.meta(b, uc["in_channels"], h, h), s.t, ctx,
+           ref=s.meta(b, n, uc["ref_in_channels"], h, h), added=added)
     s.work.flops += 3 * uw.flops
     s.work.attention += uw.attention
     s.work.attention_bwd += uw.attention
@@ -89,12 +89,11 @@ class PortTrainer:
             adam_mu_dtype=getattr(torch, t["first_moment_dtype"]), attn_impl=cfg["attn_impl"],
             remat=t["remat"])
         fmt = torch.channels_last if dev.type == "cuda" else torch.contiguous_format
-        mods = core.port_models(cfg, wts)
-        text = mods["text"].to(dev)
-        self.text_embed = st.training_text_embed(text, text.cfg)
-        del text
-        self.vae = mods["vae"].to(device=dev, dtype=dt, memory_format=fmt).requires_grad_(False)
-        unet = mods["unet"].to(device=dev, dtype=torch.float32, memory_format=fmt)
+        bundle = core.port_bundle(cfg, wts)
+        self.text_embed = core.port_training_text(bundle, dev)
+        self.vae = bundle.vae.to(device=dev, dtype=dt, memory_format=fmt).requires_grad_(False)
+        unet = bundle.unet.to(device=dev, dtype=torch.float32, memory_format=fmt)
+        del bundle
         self.state = st.init_state(self.tcfg, dict(unet.named_parameters()), device=dev)
         self.step_fn = st.make_train_step(self.tcfg, unet)
         self.names = list(self.state.params)

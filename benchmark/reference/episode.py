@@ -2,10 +2,12 @@
 what the program's set-up derives, worked out again: the empty-prompt
 text embedding and the W8A8 calibration.
 
-Everything here is float32 on whatever device the tensors live on, with
-TF32 off (`plain_float32`).  Inputs are the benchmark's uint8 images and
-{0, 1} masks, NHWC as users hand them over; outputs are the uint8
-segmentation images and masks the program returns.
+The text context and added conditioning come from every text tower the
+configuration names (`model.conditioning`).  Everything here is float32
+on whatever device the tensors live on, with TF32 off (`plain_float32`).
+Inputs are the benchmark's uint8 images and {0, 1} masks, NHWC as users
+hand them over; outputs are the uint8 segmentation images and masks the
+program returns.
 """
 
 from __future__ import annotations
@@ -24,21 +26,19 @@ def plain_float32() -> None:
 
 
 class Reference:
-    """The three models' weights (float32 copies of the served values) and
-    the configuration's sizes and options.  `bits` is the width of the
+    """The models' weights (float32 copies of the served values) and the
+    configuration's sizes and options.  `bits` is the width of the
     W8A8 sites where the configuration quantizes (8), or the narrower
     width of a control."""
 
     def __init__(self, cfg: dict, weights: dict, device, bits: int = 8):
         self.cfg, self.device = cfg, torch.device(device)
-        self.unet_cfg, self.vae_cfg, self.text_cfg = cfg["unet"], cfg["vae"], cfg["text"]
+        self.unet_cfg, self.vae_cfg = cfg["unet"], cfg["vae"]
         self.unet = M.Net(weights["unet"])
         self.vae = M.Net(weights["vae"])
         with torch.no_grad():
-            text = M.Net(weights["text"])
-            ids = torch.tensor([[self.text_cfg["bos_token_id"], self.text_cfg["eos_token_id"]]],
-                               device=self.device)
-            self.context = M.clip_text(text, self.text_cfg, ids)       # (1, 2, D)
+            towers = {k: M.Net(weights[k]) for k in M.TOWERS if k in cfg}
+            self.context, self.added = M.conditioning(towers, cfg, False, self.device)
             if cfg["vae_impl"] == "int8":
                 self.vae.quant = M.Quant("conv", bits)
                 imgs = vae_calibration_images().to(self.device)
@@ -47,7 +47,7 @@ class Reference:
             if cfg["unet_int8"]:
                 self.unet.quant = M.Quant("linear", bits)
                 lat, ref = unet_calibration_latents(self.device)
-                M.unet(self.unet, self.unet_cfg, lat, 1, self.context, ref=ref)
+                M.unet(self.unet, self.unet_cfg, lat, 1, self.context, ref=ref, added=self.added)
                 self.unet.quant = M.Quant("linear", bits, self.unet.quant.calibrated())
 
     # -- the parts --------------------------------------------------------
@@ -74,7 +74,7 @@ class Reference:
 
     def _unet(self, sample, **kw):
         return M.unet(self.unet, self.unet_cfg, sample, self.cfg["scheduler"]["timestep"],
-                      self.context, **kw)
+                      self.context, added=self.added, **kw)
 
     # -- entry points ------------------------------------------------------
 

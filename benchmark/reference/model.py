@@ -1,12 +1,15 @@
 """Plain float32 PyTorch reference of the DiffewS model math.
 
-The SD-2.1 conditional UNet with DiffewS's KV-fusion self-attention, the SD
-VAE, the OpenCLIP ViT-H text tower and the W8A8 quantization the
-configuration can state, written from their published descriptions
-(diffusers `UNet2DConditionModel`, `AutoencoderKL`, transformers
-`CLIPTextModel`; DiffewS, arXiv 2410.02369) in NCHW with stock torch ops.
-No kernels, no caches beyond the support K/V the configuration defines, no
-batching tricks.  It imports nothing of the program under test.
+The conditional UNet with DiffewS's KV-fusion self-attention, the SD VAE,
+the CLIP text towers and the W8A8 quantization the configuration can
+state, written from their published descriptions (diffusers
+`UNet2DConditionModel`, `AutoencoderKL`, transformers `CLIPTextModel` and
+`CLIPTextModelWithProjection`; DiffewS, arXiv 2410.02369) in NCHW with
+stock torch ops.  The diffusers options it walks: SD-2.1's topology, and
+SDXL's per-level `transformer_layers_per_block`, `"text_time"` added
+conditioning and second text tower (`text_2`).  No kernels, no caches
+beyond the support K/V the configuration defines, no batching tricks.  It
+imports nothing of the program under test.
 
 Weights are looked up by their diffusers names, so a run with `weights=None`
 on the meta device records the whole layout (`Net.layout`), which is how
@@ -252,14 +255,16 @@ class Streams:
     cache: Optional[Iterator] = None     # yields captured entries in site order
 
 
-def timestep_embedding(t: float, dim: int, flip: bool, shift: float, device):
+def timestep_embedding(t, dim: int, flip: bool, shift: float, device):
+    """A number or a (k,) tensor of timesteps -> (k, dim) sinusoids."""
     half = dim // 2
     exponent = -math.log(10000.0) * torch.arange(half, dtype=torch.float32, device=device)
-    emb = torch.exp(exponent / (half - shift)) * float(t)
-    emb = torch.cat([torch.sin(emb), torch.cos(emb)])
+    t = torch.as_tensor(t, dtype=torch.float32, device=device).reshape(-1, 1)
+    emb = torch.exp(exponent / (half - shift))[None] * t
+    emb = torch.cat([torch.sin(emb), torch.cos(emb)], dim=1)
     if flip:
-        emb = torch.cat([emb[half:], emb[:half]])
-    return emb[None]
+        emb = torch.cat([emb[:, half:], emb[:, :half]], dim=1)
+    return emb
 
 
 def self_attention(net: Net, name: str, h, heads: int, st: Streams):
@@ -289,11 +294,11 @@ def self_attention(net: Net, name: str, h, heads: int, st: Streams):
     return net.linear(f"{name}.to_out.0", out, c)
 
 
-def transformer(net: Net, name: str, x, ctx, heads: int, cfg: dict, st: Streams):
+def transformer(net: Net, name: str, x, ctx, heads: int, depth: int, cfg: dict, st: Streams):
     b, c, hh, ww = x.shape
     h = net.group_norm(f"{name}.norm", x, cfg["norm_num_groups"], 1e-6)
     h = net.linear(f"{name}.proj_in", h.permute(0, 2, 3, 1).reshape(b, hh * ww, c), c)
-    for i in range(cfg["transformer_layers_per_block"]):
+    for i in range(depth):
         blk = f"{name}.transformer_blocks.{i}"
         h = h + self_attention(net, f"{blk}.attn1", net.layer_norm(f"{blk}.norm1", h), heads, st)
         n2 = net.layer_norm(f"{blk}.norm2", h)
@@ -309,13 +314,39 @@ def transformer(net: Net, name: str, x, ctx, heads: int, cfg: dict, st: Streams)
     return h.reshape(b, hh, ww, c).permute(0, 3, 1, 2) + x
 
 
-def unet(net: Net, cfg: dict, sample, t: float, ctx, ref=None, capture=None, cache=None):
+def transformer_depths(cfg: dict) -> list:
+    """Transformer blocks per level: `transformer_layers_per_block` as a
+    per-level list, or one int for every level."""
+    d, n = cfg["transformer_layers_per_block"], len(cfg["block_out_channels"])
+    return list(d) if isinstance(d, (list, tuple)) else [d] * n
+
+
+def added_embedding(net: Net, cfg: dict, added):
+    """SDXL's `"text_time"` term of the time embedding: the pooled text
+    embedding ‖ the sinusoids of the six size and crop ids, through
+    `add_embedding`.  added = (pooled (1, P), time_ids (6,))."""
+    pooled, time_ids = added
+    e = timestep_embedding(time_ids, cfg["addition_time_embed_dim"], cfg["flip_sin_to_cos"],
+                           cfg["freq_shift"], pooled.device)
+    x = torch.cat([pooled, e.reshape(1, -1).expand(pooled.shape[0], -1)], dim=1)
+    dim = 4 * cfg["block_out_channels"][0]
+    if x.shape[1] != cfg["projection_class_embeddings_input_dim"]:
+        raise ValueError(f"added conditioning of width {x.shape[1]}, config says "
+                         f"{cfg['projection_class_embeddings_input_dim']}")
+    h = F.silu(net.linear("add_embedding.linear_1", x, dim))
+    return net.linear("add_embedding.linear_2", h, dim)
+
+
+def unet(net: Net, cfg: dict, sample, t: float, ctx, ref=None, capture=None, cache=None,
+         added=None):
     """The joint forward.  sample: (B, 4, h, w) query latents; ctx: (1, L,
     D) text context; ref: (B, N, 8, h, w) support latents ‖ mask latents,
-    or None with `cache` (per-site support K/V of one support set).
-    Returns the query rows' prediction (B, 4, h, w)."""
+    or None with `cache` (per-site support K/V of one support set); added:
+    (pooled, time_ids) where `addition_embed_type` is "text_time"
+    (`conditioning`).  Returns the query rows' prediction (B, 4, h, w)."""
     chans, n = cfg["block_out_channels"], len(cfg["block_out_channels"])
     g, eps, heads = cfg["norm_num_groups"], cfg["norm_eps"], cfg["num_attention_heads"]
+    depth = transformer_depths(cfg)
     attn_down = [bt == "CrossAttnDownBlock2D" for bt in cfg["down_block_types"]]
     attn_up = [bt == "CrossAttnUpBlock2D" for bt in cfg["up_block_types"]]
     b = sample.shape[0]
@@ -324,6 +355,13 @@ def unet(net: Net, cfg: dict, sample, t: float, ctx, ref=None, capture=None, cac
     temb = net.linear("time_embedding.linear_2",
                       F.silu(net.linear("time_embedding.linear_1", temb, 4 * chans[0])),
                       4 * chans[0])
+    kind = cfg.get("addition_embed_type")
+    if kind not in (None, "text_time"):
+        raise ValueError(f"addition_embed_type {kind!r} is not walked")
+    if (kind is None) != (added is None):
+        raise ValueError(f"addition_embed_type {kind!r} with added {type(added).__name__}")
+    if added is not None:
+        temb = temb + added_embedding(net, cfg, added)
     h = net.conv("conv_in", sample, chans[0])
     st = Streams(capture=capture, cache=None if cache is None else iter(cache))
     if ref is not None:
@@ -338,13 +376,14 @@ def unet(net: Net, cfg: dict, sample, t: float, ctx, ref=None, capture=None, cac
         for j in range(cfg["layers_per_block"]):
             h = resnet(net, f"down_blocks.{i}.resnets.{j}", h, chans[i], temb, g, eps)
             if attn_down[i]:
-                h = transformer(net, f"down_blocks.{i}.attentions.{j}", h, ctx, heads[i], cfg, st)
+                h = transformer(net, f"down_blocks.{i}.attentions.{j}", h, ctx, heads[i],
+                                depth[i], cfg, st)
             skips.append(h)
         if i < n - 1:
             h = net.conv(f"down_blocks.{i}.downsamplers.0.conv", h, chans[i], stride=2)
             skips.append(h)
     h = resnet(net, "mid_block.resnets.0", h, chans[-1], temb, g, eps)
-    h = transformer(net, "mid_block.attentions.0", h, ctx, heads[-1], cfg, st)
+    h = transformer(net, "mid_block.attentions.0", h, ctx, heads[-1], depth[-1], cfg, st)
     h = resnet(net, "mid_block.resnets.1", h, chans[-1], temb, g, eps)
     for i in range(n):
         c = chans[n - 1 - i]
@@ -353,7 +392,7 @@ def unet(net: Net, cfg: dict, sample, t: float, ctx, ref=None, capture=None, cac
                        c, temb, g, eps)
             if attn_up[i]:
                 h = transformer(net, f"up_blocks.{i}.attentions.{j}", h, ctx, heads[n - 1 - i],
-                                cfg, st)
+                                depth[n - 1 - i], cfg, st)
         if i < n - 1:
             h = net.conv(f"up_blocks.{i}.upsamplers.0.conv", upsample2x(h), c)
     if st.cache is not None and next(st.cache, None) is not None:
@@ -420,22 +459,47 @@ def vae_decode(net: Net, cfg: dict, z):
 
 
 # ---------------------------------------------------------------------------
-# CLIP text tower
+# CLIP text towers and the UNet's conditioning
 # ---------------------------------------------------------------------------
+
+TOWERS = ("text", "text_2")      # diffusers' text_encoder, text_encoder_2
+CONTEXT_LAYERS = ("final", "penultimate")
+
+
+def activation(name: str, x: torch.Tensor) -> torch.Tensor:
+    if name == "gelu":
+        return F.gelu(x)
+    if name == "quick_gelu":
+        return x * torch.sigmoid(1.702 * x)
+    raise ValueError(f"hidden_act {name!r} is not walked")
 
 
 def clip_text(net: Net, cfg: dict, ids: torch.Tensor):
-    """(B, S) token ids -> final-layer-normed last hidden state (B, S, D)."""
+    """(B, S) token ids -> (context (B, S, D), pooled (B, P) or None).
+
+    The context is the last layer's output through `final_layer_norm`
+    (`context_layer` "final", the default) or the next-to-last layer's
+    output as it is ("penultimate", SDXL's); every layer is walked either
+    way.  Where the tower has `projection_dim` (transformers'
+    `CLIPTextModelWithProjection`), pooled is `text_projection` (no bias) of
+    the final-normed last hidden state at the first EOS position."""
     d, vocab = cfg["hidden_size"], cfg["vocab_size"]
-    s = ids.shape[1]
+    layer = cfg.get("context_layer", "final")
+    if layer not in CONTEXT_LAYERS:
+        raise ValueError(f"context_layer {layer!r} is not one of {CONTEXT_LAYERS}")
+    b, s = ids.shape
+    meta = net.weights is None
     tok = net.p("embeddings.token_embedding.weight", (vocab, d))
     pos = net.p("embeddings.position_embedding.weight", (cfg["max_position_embeddings"], d))
-    if tok.device.type == "meta":
-        x = torch.empty((ids.shape[0], s, d), device="meta")
+    if meta:
+        x = torch.empty((b, s, d), device="meta")
     else:
         x = tok[ids.clamp(0, vocab - 1)] + pos[:s][None]
-    eps = cfg["layer_norm_eps"]
-    for i in range(cfg["num_hidden_layers"]):
+    eps, n = cfg["layer_norm_eps"], cfg["num_hidden_layers"]
+    penultimate = x
+    for i in range(n):
+        if i == n - 1:
+            penultimate = x
         L = f"encoder.layers.{i}"
         h = net.layer_norm(f"{L}.layer_norm1", x, eps)
         q = net.linear(f"{L}.self_attn.q_proj", h, d)
@@ -445,5 +509,54 @@ def clip_text(net: Net, cfg: dict, ids: torch.Tensor):
         x = x + net.linear(f"{L}.self_attn.out_proj", a, d)
         h = net.linear(f"{L}.mlp.fc1", net.layer_norm(f"{L}.layer_norm2", x, eps),
                        cfg["intermediate_size"])
-        x = x + net.linear(f"{L}.mlp.fc2", F.gelu(h), d)
-    return net.layer_norm("final_layer_norm", x, eps)
+        x = x + net.linear(f"{L}.mlp.fc2", activation(cfg["hidden_act"], h), d)
+    last = net.layer_norm("final_layer_norm", x, eps)
+    pooled = None
+    if "projection_dim" in cfg:
+        if meta:
+            eos = torch.empty((b, d), device="meta")
+        else:
+            at = (ids == cfg["eos_token_id"]).int().argmax(dim=1)
+            eos = last[torch.arange(b, device=last.device), at]
+        pooled = net.linear("text_projection", eos, cfg["projection_dim"], bias=False)
+    return (last if layer == "final" else penultimate), pooled
+
+
+def prompt_ids(cfg: dict, padded: bool, device) -> torch.Tensor:
+    """The empty prompt's ids for one tower: [BOS, EOS], zero-padded to
+    `max_position_embeddings` where `padded` (training's)."""
+    ids = [cfg["bos_token_id"], cfg["eos_token_id"]]
+    if padded:
+        ids += [0] * (cfg["max_position_embeddings"] - 2)
+    return torch.tensor([ids], device=device)
+
+
+def time_ids(cfg: dict, device) -> torch.Tensor:
+    """SDXL's six size and crop ids for an uncropped image of the
+    configuration's resolution r: (r, r, 0, 0, r, r)."""
+    r = float(cfg["resolution"])
+    return torch.tensor([r, r, 0.0, 0.0, r, r], device=device)
+
+
+def conditioning(nets: dict, cfg: dict, padded: bool, device):
+    """The UNet's conditioning from the empty prompt: (context (1, L, D),
+    added).  The context is every tower's (`TOWERS` order) concatenated
+    along features; added is (the pooled embedding of the last tower that
+    has one, `time_ids`) where the UNet's `addition_embed_type` is
+    "text_time", else None.  `nets`: a `Net` per tower the configuration
+    names (weights None walks them on the meta device)."""
+    ctxs, pooled = [], None
+    for key in TOWERS:
+        if key not in cfg:
+            continue
+        net = nets[key]
+        dev = torch.device("meta") if net.weights is None else device
+        ctx, p = clip_text(net, cfg[key], prompt_ids(cfg[key], padded, dev))
+        ctxs.append(ctx)
+        pooled = p if p is not None else pooled
+    context = ctxs[0] if len(ctxs) == 1 else torch.cat(ctxs, dim=-1)
+    if cfg["unet"].get("addition_embed_type") is None:
+        return context, None
+    if pooled is None:
+        raise ValueError("addition_embed_type 'text_time' needs a tower with projection_dim")
+    return context, (pooled, time_ids(cfg, pooled.device))

@@ -34,11 +34,9 @@ class TrainReference:
         self.params = {n: w.detach().clone().requires_grad_(True)
                        for n, w in weights["unet"].items()}
         self.vae = M.Net(weights["vae"], low=low)
-        tc = cfg["text"]
-        ids = [tc["bos_token_id"], tc["eos_token_id"]]
-        ids = torch.tensor([ids + [0] * (tc["max_position_embeddings"] - 2)], device=self.device)
+        towers = {k: M.Net(weights[k]) for k in M.TOWERS if k in cfg}
         with torch.no_grad():
-            self.context = M.clip_text(M.Net(weights["text"]), tc, ids)
+            self.context, self.added = M.conditioning(towers, cfg, True, self.device)
         self.mu = {n: torch.zeros_like(p) for n, p in self.params.items()}
         self.nu = {n: torch.zeros_like(p) for n, p in self.params.items()}
         self.count = 0
@@ -74,7 +72,7 @@ class TrainReference:
         total = 0.0
         for i in range(b):
             pred = M.unet(net, self.cfg["unet"], q[i:i + 1], self.t["train_timestep"],
-                          self.context, ref=ref[i:i + 1])
+                          self.context, ref=ref[i:i + 1], added=self.added)
             loss = (pred - (-qm[i:i + 1])).square().mean() / b
             g = torch.autograd.grad(loss, list(self.params.values()), allow_unused=True)
             for (n, p), gi in zip(self.params.items(), g):

@@ -82,6 +82,54 @@ def test_a_cell_is_added_by_files_and_entries_alone(tmp_path):
     assert line["metrics"]["batches_done.episode"]["value"] > 0
 
 
+def test_an_sdxl_shaped_cell_is_added_by_files_and_entries_alone(tmp_path):
+    """A copy of the checkout gains a tiny SDXL-shaped configuration (per-
+    level depth, "text_time" added conditioning, a second text tower), a
+    traffic mix and a cell as new files and entries.  The cell loads, its
+    weights draw, its work counts and the reference runs its episode with
+    no edit to the harness; the first call to fail is the one into the
+    port, which refuses the configuration itself."""
+    from benchmark import generator, weights, work
+    from benchmark.reference import episode as ref_lib
+    from benchmark.tests import sdxl
+
+    root = tmp_path / "checkout"
+    shutil.copytree(tiny.BENCH, root / "benchmark")
+    spec = _spec()
+    (root / "benchmark" / "configs" / "sdxl-tiny.json").write_text(json.dumps(sdxl.config()))
+    traffic = json.loads((tiny.BENCH / "traffic" / "episode-1shot-b8.json").read_text())
+    traffic.update(batch=2, pool=2)
+    (root / "benchmark" / "traffic" / "episode-1shot-b2.json").write_text(json.dumps(traffic))
+    (root / "benchmark" / "workloads" / "sdxl-tiny.episode-1shot-b2.json").write_text(
+        json.dumps({"limits": {"seg_mae": 1.0, "mask_threshold_mismatch": 0.0}}))
+    spec["configs"].append({"name": "sdxl-tiny", "source": "https://arxiv.org/abs/2307.01952",
+                            "file": "benchmark/configs/sdxl-tiny.json", "reduced": [], "why": "t"})
+    spec["workloads"].append({"name": "sdxl-tiny.episode-1shot-b2", "config": "sdxl-tiny",
+                              "traffic": "episode-1shot-b2", "chips": 1, "why": "t"})
+    for m in spec["end_to_end"] + spec["per_layer"]:
+        if "sd21.episode-1shot-b8" in m.get("workloads", []):
+            m["workloads"].append("sdxl-tiny.episode-1shot-b2")
+    (root / "BENCHMARK.json").write_text(json.dumps(spec))
+
+    seed = 2 ** 35 + 9
+    cell = core.load_cell(root, "sdxl-tiny.episode-1shot-b2")
+    cfg = cell.config
+    assert cfg["unet"]["addition_embed_type"] == "text_time" and "text_2" in cfg
+    wts = weights.make(cfg, seed, "cpu")
+    assert list(wts) == ["unet", "vae", "text", "text_2"]
+    w = work.batch_work(cfg, cell.traffic, root)
+    assert w.flops > 0 and len(w.attention) == 2 * 18 + 2     # 18 sites, 2 streams; VAE
+    inputs = generator.make(cell.traffic, seed, cfg["resolution"], "cpu", root=root)
+    ref = ref_lib.Reference(cfg, weights.as_float32(wts), "cpu")
+    seg_of = kinds.load(cell.traffic["mode"], root).reference(
+        ref, cell.traffic, inputs, lambda a: generator.as_tensor(a, tiny.CPU))
+    assert seg_of(inputs["batches"][0]).shape == (2, 32, 32, 3)
+    with pytest.raises(TypeError, match=r"UNetConfig.*addition_embed_type"):
+        core.build_program(cfg, wts, tiny.CPU)
+    with pytest.raises(TypeError, match=r"UNetConfig.*addition_embed_type"):
+        core.run_cell(cell, seed, 1.0, False, "cpu")
+
+
 @pytest.mark.parametrize("seed", [0, 2 ** 31 + 5, 2 ** 62 + 9])
 def test_inputs_follow_the_seed_and_keep_their_sizes(seed):
     """The same seed gives the same inputs; every seed the same sizes."""

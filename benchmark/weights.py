@@ -20,18 +20,19 @@ from benchmark.reference import model as M
 
 
 def layouts(cfg: dict) -> dict:
-    """{"unet" | "vae" | "text": {name: shape}} in the reference's walk
-    order, from a meta-device run at small spatial sizes (no weight
-    depends on them)."""
-    u, v, t = M.Net(), M.Net(), M.Net()
+    """{"unet" | "vae" | "text" [| "text_2"]: {name: shape}} in the
+    reference's walk order (the towers `M.TOWERS` the configuration names,
+    after the VAE), from a meta-device run at small spatial sizes (no
+    weight depends on them)."""
+    u, v = M.Net(), M.Net()
+    towers = {k: M.Net() for k in M.TOWERS if k in cfg}
     uc, vc = cfg["unet"], cfg["vae"]
-    M.unet(u, uc, torch.empty((1, uc["in_channels"], 8, 8), device="meta"), 1,
-           torch.empty((1, 2, uc["cross_attention_dim"]), device="meta"),
-           ref=torch.empty((1, 1, uc["ref_in_channels"], 8, 8), device="meta"))
+    ctx, added = M.conditioning(towers, cfg, False, "meta")
+    M.unet(u, uc, torch.empty((1, uc["in_channels"], 8, 8), device="meta"), 1, ctx,
+           ref=torch.empty((1, 1, uc["ref_in_channels"], 8, 8), device="meta"), added=added)
     z = M.vae_encode_mean(v, vc, torch.empty((1, vc["in_channels"], 64, 64), device="meta"))
     M.vae_decode(v, vc, z)
-    M.clip_text(t, cfg["text"], torch.zeros((1, 2), dtype=torch.int64, device="meta"))
-    return {"unet": u.layout, "vae": v.layout, "text": t.layout}
+    return {"unet": u.layout, "vae": v.layout, **{k: t.layout for k, t in towers.items()}}
 
 
 def _init(name: str, shape) -> tuple:
@@ -64,16 +65,13 @@ def draw(layout: dict, gen: torch.Generator, dtype, device) -> dict:
 
 
 def make(cfg: dict, seed: int, device) -> dict:
-    """{"unet", "vae", "text": {name: tensor}} from `seed`: the UNet and VAE
-    in the compute dtype, the text tower in its own (the program computes
-    one embedding with it)."""
+    """{"unet", "vae", "text"[, "text_2"]: {name: tensor}} from `seed`, drawn
+    in that order: the UNet and VAE in the compute dtype, the text towers in
+    their own (the program computes one embedding with them)."""
     device = torch.device(device)
     gen = torch.Generator(device=device).manual_seed(int(seed) % (2 ** 63))
-    lay = layouts(cfg)
-    dt = getattr(torch, cfg["compute_dtype"])
-    return {"unet": draw(lay["unet"], gen, dt, device),
-            "vae": draw(lay["vae"], gen, dt, device),
-            "text": draw(lay["text"], gen, getattr(torch, cfg["text_dtype"]), device)}
+    dtype = lambda k: getattr(torch, cfg["text_dtype"] if k in M.TOWERS else cfg["compute_dtype"])
+    return {k: draw(lay, gen, dtype(k), device) for k, lay in layouts(cfg).items()}
 
 
 def as_float32(weights: dict) -> dict:

@@ -45,10 +45,17 @@ class Shapes:
     r: int              # image size
     h: int              # latent size
     ctx: torch.Tensor   # the text context
+    added: object       # the UNet's added conditioning, or None
     t: int              # the timestep
 
     def meta(self, *shape) -> torch.Tensor:
         return _meta(*shape)
+
+
+def conditioning(cfg: dict, padded: bool) -> tuple:
+    """(context, added) of the empty prompt (`M.conditioning`), its ids
+    padded to the towers' length where `padded`, on the meta device."""
+    return M.conditioning({k: M.Net() for k in M.TOWERS if k in cfg}, cfg, padded, "meta")
 
 
 def batch_work(cfg: dict, traffic: dict, root=None) -> M.Work:
@@ -56,13 +63,13 @@ def batch_work(cfg: dict, traffic: dict, root=None) -> M.Work:
     kind counts them."""
     from benchmark import kinds
 
-    uc, vc = cfg["unet"], cfg["vae"]
+    vc = cfg["vae"]
     work = M.Work(elt=torch.finfo(getattr(torch, cfg["compute_dtype"])).bits // 8)
     unet, vae = _nets(cfg, work)
     r = cfg["resolution"]
     s = Shapes(cfg, traffic, work, unet, vae, traffic["batch"], traffic["shots"], r,
-               r // 2 ** (len(vc["block_out_channels"]) - 1),
-               _meta(1, 2, uc["cross_attention_dim"]), cfg["scheduler"]["timestep"])
+               r // 2 ** (len(vc["block_out_channels"]) - 1), *conditioning(cfg, False),
+               cfg["scheduler"]["timestep"])
     kinds.load(traffic["mode"], root).count(s)
     return work
 
